@@ -1,0 +1,2 @@
+"""Geometry ops on fixed-capacity masked tensors, and the hand-written CUDA
+kernels' wrappers (each with its plain PyTorch version)."""

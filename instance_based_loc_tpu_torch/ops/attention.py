@@ -1,0 +1,110 @@
+"""ViT multi-head attention: the CUDA kernel's wrapper and its plain version.
+
+Counterpart of `instance_based_loc_tpu/ops/pallas/attention.py`
+(`fused_attention`, kernel `_attn_kernel`). The kernel is
+`csrc/vit_attention.cu`; its source notes its bound and design.
+
+`vit_attention` takes the kernel's plain PyTorch version only for tensors on
+the CPU. For a CUDA tensor it launches the kernel or raises. `launches`
+counts the kernel's launches, so a run can show that its path went through
+the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build
+
+SOURCE = "vit_attention.cu"
+# an H100's per-block dynamic shared memory limit (227 KB)
+MAX_SHARED_BYTES = 232_448
+
+launches = 0
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load(SOURCE)
+        lib.vit_attention_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.vit_attention_launch.restype = ctypes.c_int
+        lib.vit_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.vit_attention_smem_bytes.restype = ctypes.c_size_t
+        _lib = lib
+    return _lib
+
+
+def vit_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            valid_len: int | None = None) -> torch.Tensor:
+    """Plain PyTorch attention in fp32 (the kernel's plain version).
+
+    q, k, v: (B, H, S, D). Keys at or past `valid_len` are masked. Returns
+    (B, H, S, D) in the input type."""
+    s, d = q.shape[-2], q.shape[-1]
+    scale = 1.0 / d ** 0.5
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float())
+    if valid_len is not None:
+        keep = torch.arange(s, device=q.device) < valid_len
+        scores = scores.masked_fill(~keep, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid_len: int | None = None) -> torch.Tensor:
+    """softmax(q kᵀ / √D, keys < valid_len) v for q, k, v of shape
+    (B, H, S, D); fp32 scores and sums, output in the input type.
+
+    Query rows at or past `valid_len` give rows the caller discards."""
+    global launches
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must share one (B, H, S, D) shape; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError("q, k and v must share one dtype")
+    if not q.device == k.device == v.device:
+        raise ValueError("q, k and v must lie on one device")
+    b, h, s, d = q.shape
+    valid = s if valid_len is None else int(valid_len)
+    if not 1 <= valid <= s:
+        raise ValueError(f"valid_len must lie in [1, {s}]; got {valid}")
+    if q.device.type == "cpu":
+        return vit_attention_reference(q, k, v, valid_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"no attention path for device {q.device}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the kernel takes bf16 or fp32; got {q.dtype}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16 and d != 64:
+        raise ValueError(f"the kernel takes bf16 only with head size 64 (the "
+                         f"ViT embedders'); got {d}")
+    if b * h > 65535:
+        raise ValueError(f"the kernel takes at most 65535 batch*heads; "
+                         f"got {b * h}")
+    lib = _library()
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    smem = lib.vit_attention_smem_bytes(d, valid, 2 if is_bf16 else 4)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"K and V of one head need {smem} B of shared "
+                         f"memory, above the {MAX_SHARED_BYTES} B a block "
+                         f"can have")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.vit_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b * h, s, d, valid, 1.0 / d ** 0.5, is_bf16, stream)
+    if err != 0:
+        raise RuntimeError(f"vit_attention kernel launch failed with CUDA "
+                           f"error {err}")
+    launches += 1
+    return out
