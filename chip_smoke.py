@@ -22,6 +22,32 @@ progress line and raise on failure:
               embedded crop batch, and every pose finite. Then the trunk on the
               card (bf16, kernel) is held against the same weights in fp32 on
               the CPU (plain attention) on a few crops.
+  5. sam_kernel   SAM's global-block attention kernel against its plain
+              version at SAM-H (1, 16, 4096, 80), SAM-B (1, 12, 4096, 64) and
+              48x64 and 48x48 grids, bf16; times the kernel, the plain
+              version and scaled_dot_product_attention with the bias as a
+              mask (a yardstick only; the port never calls it) at SAM-H and
+              at 48x48, whose key-grid rows are not one 64-key tile (the
+              kernel's general bias path).
+  6. msda_kernel  the MSDA level-gather kernel against its plain version at
+              GroundingDINO@800's level 0 (S = 100 x 100, H = 8, D = 32, bf16
+              values) with encoder (Q = 13294) and decoder (Q = 900) queries,
+              taps from sampling points that spill outside the map; its
+              device time comes from torch.profiler (the kernel is shorter
+              than its wrapper's launch).
+  7. cascade  the full-width GroundingDINO (Swin-B, BERT-base, 900 queries,
+              6 + 6 layers, 800 px) -> SAM-H (1024 px) cascade with seeded
+              random weights in bf16 builds an object memory of
+              tests/test_neural_e2e.py's scene (views 0 and 2, floor on) and
+              localises view 1; every SAM image encode must launch the
+              attention kernel once per global block and every GroundingDINO
+              forward the gather kernel once per level and deformable
+              layer.
+  8. cascade_vs_cpu  one frame through GroundingDINO (1 + 1 layers) and SAM
+              (SAM-H width, 4 blocks, one global) on the card in bf16 with the
+              kernels, and in fp32 on the CPU with the plain versions, same
+              weights: embedding cosine, mask logits, GroundingDINO logits and
+              boxes within the thresholds written below.
 
 The last lines are the card's name and power limit, a JSON line describing
 each kernel, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -76,12 +102,40 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel: str, iters: int = 50) -> float:
+    """Mean device time of the kernels named `kernel` over `iters` calls of
+    fn(), from torch.profiler: for a kernel shorter than its Python
+    wrapper's launch, back-to-back CUDA events time the host instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    check(len(times) == iters, f"the profiler saw {len(times)} launches of "
+                               f"{kernel} for {iters} calls")
+    return sum(times) / len(times) / 1e3
+
+
 def phase_build():
-    from instance_based_loc_tpu_torch.ops import attention, cuda_build
+    """nvcc for every kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from instance_based_loc_tpu_torch.ops import (
+        attention, cuda_build, msda_gather, sam_attention)
     t0 = time.perf_counter()
-    info = cuda_build.build(attention.SOURCE)
-    log(f"build: nvcc {info['seconds']:.1f} s -> {info['path']}")
-    print(info["log"], flush=True)
+    sources = [attention.SOURCE, sam_attention.SOURCE, msda_gather.SOURCE]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        infos = list(pool.map(cuda_build.build, sources))
+    for source, info in zip(sources, infos):
+        log(f"build: {source}: nvcc {info['seconds']:.1f} s -> "
+            f"{info['path']}")
+        print(info["log"], flush=True)
     log(f"build done in {time.perf_counter() - t0:.1f} s")
 
 
@@ -285,6 +339,403 @@ def phase_dino(scene_data):
     return launches
 
 
+# SAM attention: |diff| <= 2e-3 + 2^-7 |ref|, the TPU kernel's own figure
+# against fp32 attention plus one bf16 step of the output
+SAM_TOL = (2e-3, 2 ** -7)
+MSDA_TOL = 1e-5          # 16 fp32 products of the same values, reordered
+H100_FP32_FLOP_PER_S = 67e12   # CUDA cores, H100 SXM data sheet
+# phase 8 gates, bf16 on the card against fp32 on the CPU (set before the
+# first run on the card): SAM embedding cosine; SAM mask logits and
+# GroundingDINO logits as a share of the reference's largest |value|;
+# GroundingDINO boxes (normalised cxcywh) absolute; the share of the CPU's
+# selected queries the card also selects
+SAM_EMB_COS_MIN = 0.99
+SAM_LOGIT_REL_MAX = 0.05
+GDINO_LOGIT_REL_MAX = 0.05
+GDINO_BOX_MAX = 0.02
+GDINO_QUERY_OVERLAP_MIN = 0.9
+FOCAL_E2E, H_E2E, W_E2E = 200.0, 240, 320     # tests/test_neural_e2e.py
+KEYWORDS = ["object", "floor", "ground"]
+
+
+def write_vocab(directory: str) -> str:
+    """A synthetic WordPiece vocab with BERT-base-uncased's special ids
+    ([PAD] 0, [UNK] 100, [CLS] 101, [SEP] 102, "." 1012, "?" 1029) and the
+    cascade's keywords after them (no vocab ships with the repository)."""
+    vocab = [f"[unused{i}]" for i in range(1030)]
+    for i, tok in ((0, "[PAD]"), (100, "[UNK]"), (101, "[CLS]"),
+                   (102, "[SEP]"), (103, "[MASK]"), (1012, "."), (1029, "?")):
+        vocab[i] = tok
+    path = f"{directory}/vocab.txt"
+    with open(path, "w") as f:
+        f.write("\n".join(vocab + KEYWORDS) + "\n")
+    return path
+
+
+def bound(bytes_moved: float, flops: float, flop_rate: float):
+    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_sam_kernel():
+    import torch
+    import torch.nn.functional as F
+    from instance_based_loc_tpu_torch.ops import sam_attention as sa
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def inputs(b, h, hk, wk, d):
+        s = hk * wk
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        bias_h, bias_w = (
+            (0.3 * torch.randn((b, h, s, n), generator=gen, device="cuda"))
+            .to(torch.bfloat16) for n in (hk, wk))
+        return q, k, v, bias_h, bias_w
+
+    errs = {}
+    for name, shape in (("SAM-H", (1, 16, 64, 64, 80)),
+                        ("SAM-B", (1, 12, 64, 64, 64)),
+                        ("48x64 grid", (1, 16, 48, 64, 80)),
+                        ("48x48 grid", (1, 16, 48, 48, 80))):
+        args = inputs(*shape)
+        out = sa.sam_attention(*args)
+        torch.cuda.synchronize()
+        ref = sa.sam_attention_reference(*args).float()
+        diff = (out.float() - ref).abs()
+        err = diff.max().item()
+        excess = (diff - SAM_TOL[0] - SAM_TOL[1] * ref.abs()).max().item()
+        log(f"sam_kernel {name} {tuple(args[0].shape)} bf16: max|diff| "
+            f"{err:.3g}, max|ref| {ref.abs().max().item():.3g} (tolerance "
+            f"{SAM_TOL[0]} + {SAM_TOL[1]:.3g} |ref|)")
+        check(excess <= 0, f"sam kernel disagrees at {name}: max|diff| {err}")
+        errs[name] = err
+        del out, ref, diff
+
+    def timing(name, args):
+        q, k, v, bias_h, bias_w = args
+        b, h, s, d = q.shape
+        kernel_ms = time_ms(lambda: sa.sam_attention(*args), iters=20)
+        plain_ms = time_ms(lambda: sa.sam_attention_reference(*args),
+                           iters=3, warmup=1)
+        mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(
+            b, h, s, s)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), iters=20)
+        del mask
+        bytes_moved = sum(x.numel() * x.element_size() for x in args) \
+            + q.numel() * q.element_size()
+        flops = 4 * b * h * s * s * d
+        bound_ms, bound_by = bound(bytes_moved, flops, H100_BF16_FLOP_PER_S)
+        log(f"sam_kernel timing at {name} ({b}, {h}, {s}, {d}) bf16: kernel "
+            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa with the "
+            f"bias as mask {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} "
+            f"us by {bound_by} ({bytes_moved / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP)")
+        return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
+
+    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = timing(
+        "SAM-H", inputs(1, 16, 64, 64, 80))
+    # WK != 64: the kernel's general bias path (bias_w from shared memory)
+    timing("SAM-H width, 48x48 grid", inputs(1, 16, 48, 48, 80))
+    log(f"sam_kernel phase done in {time.perf_counter() - t0:.1f} s")
+    return {"name": "sam_attention", "route": "cuda",
+            "source": "instance_based_loc_tpu_torch/csrc/sam_attention.cu",
+            "replaces": "instance_based_loc_tpu/ops/pallas/sam_attention.py:44",
+            "launches": None, "max_abs_err": errs["SAM-H"],
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def phase_msda_kernel():
+    import torch
+    from instance_based_loc_tpu_torch.ops import msda, msda_gather as mg
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    hh = ww = 100                       # GroundingDINO@800's level 0
+    heads, d = 8, 32
+    vmap = torch.randn((hh * ww, heads, d), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    entry = None
+    for name, q in (("encoder", 13294), ("decoder", 900)):
+        # sampling points spill outside the map: their taps weigh 0
+        loc = torch.rand((q, heads, 4, 2), generator=gen,
+                         device="cuda") * 1.1 - 0.05
+        w = torch.softmax(torch.randn((q, heads, 4), generator=gen,
+                                      device="cuda"), dim=-1)
+        lin, coeff = msda._level_rows(loc, w, hh, ww)
+        out = mg.msda_level_gather(vmap, lin, coeff)
+        torch.cuda.synchronize()
+        ref = mg.msda_level_gather_reference(vmap, lin, coeff)
+        err = (out - ref).abs().max().item()
+        zero = (coeff == 0).float().mean().item()
+        log(f"msda_kernel {name} Q={q} S={hh * ww} H={heads} D={d} bf16: "
+            f"max|diff| {err:.3g}, max|ref| {ref.abs().max().item():.3g}, "
+            f"zero-weight taps {zero:.3f} (tolerance {MSDA_TOL})")
+        check(err <= MSDA_TOL, f"msda kernel disagrees at {name}: {err}")
+        call_ms = time_ms(lambda: mg.msda_level_gather(vmap, lin, coeff))
+        kernel_ms = device_ms(lambda: mg.msda_level_gather(vmap, lin, coeff),
+                              "msda_gather")
+        plain_ms = time_ms(lambda: mg.msda_level_gather_reference(
+            vmap, lin, coeff), iters=10)
+        bytes_moved = (lin.numel() * 4 + coeff.numel() * 4
+                       + vmap.numel() * vmap.element_size() + q * heads * d * 4)
+        flops = 2 * q * heads * mg.TAPS * d
+        bound_ms, bound_by = bound(bytes_moved, flops, H100_FP32_FLOP_PER_S)
+        log(f"msda_kernel timing {name}: kernel {kernel_ms:.4f} ms on the "
+            f"device ({call_ms:.4f} ms per back-to-back call), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us by {bound_by} "
+            f"({bytes_moved / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); no "
+            f"single PyTorch call computes this function")
+        if entry is None:           # the encoder shape at level 0
+            entry = {"name": "msda_gather", "route": "cuda",
+                     "source": "instance_based_loc_tpu_torch/csrc/"
+                               "msda_gather.cu",
+                     "replaces": "instance_based_loc_tpu/ops/pallas/"
+                                 "msda_gather.py:37",
+                     "launches": None, "max_abs_err": err, "ms": kernel_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None}
+    log(f"msda_kernel phase done in {time.perf_counter() - t0:.1f} s")
+    return entry
+
+
+class RecordingDetector:
+    """Passes `find` to the cascade and records each frame's detections."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.frames = []
+
+    def find(self, rgb, consider_floor):
+        det = self.inner.find(rgb, consider_floor)
+        self.frames.append(list(det.phrases))
+        return det
+
+
+def e2e_frames():
+    from instance_based_loc_tpu_torch.data.synthetic import (
+        default_scene, render_scene, ring_poses)
+    scene = default_scene(num_objects=4, seed=5)
+    poses = ring_poses(4, radius=4.5, height=1.3, target=(0, 0.4, 0))
+    return [render_scene(scene, p, H_E2E, W_E2E, FOCAL_E2E)
+            for p in poses], poses
+
+
+def sync_ms(fn, reps: int = 3) -> float:
+    """Mean host time of fn() with the card synchronised, after one run."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_cascade(workdir, frames, poses):
+    import collections
+    import numpy as np
+    import torch
+    from instance_based_loc_tpu_torch.memory import ObjectMemory
+    from instance_based_loc_tpu_torch.models.cascade import (
+        build_cascade_detector)
+    from instance_based_loc_tpu_torch.models.embedders import get_embedder
+    from instance_based_loc_tpu_torch.models.gdino import GDinoConfig
+    from instance_based_loc_tpu_torch.models.sam import SamConfig, canvas
+    from instance_based_loc_tpu_torch.ops import msda_gather, sam_attention
+    t0 = time.perf_counter()
+    cascade = build_cascade_detector(
+        gdino_vocab=write_vocab(workdir), random_init=True,
+        sam_cfg=SamConfig(), gdino_cfg=GDinoConfig(),
+        compute_dtype="bfloat16", device="cuda")
+    seg, gd = cascade.segmenter, cascade.grounder
+    scfg, gcfg = seg.model.cfg, gd.model.cfg
+    check((scfg.encoder_dim, scfg.encoder_depth, scfg.encoder_heads,
+           scfg.img_size) == (1280, 32, 16, 1024), f"SAM is not SAM-H: {scfg}")
+    check((gcfg.backbone.embed_dim, gcfg.backbone.depths, gcfg.backbone.window,
+           gcfg.text.num_layers, gcfg.num_queries, gcfg.encoder_layers,
+           gcfg.decoder_layers, gcfg.img_size)
+          == (128, (2, 2, 18, 2), 12, 12, 900, 6, 6, 800),
+          f"GroundingDINO is not the deployment config: {gcfg}")
+    log(f"cascade: GroundingDINO (Swin-B, BERT-base) and SAM-H built with "
+        f"random weights in {time.perf_counter() - t0:.1f} s")
+
+    detector = RecordingDetector(cascade)
+    memory = ObjectMemory(detector=detector,
+                          camera_focal_lenth_x=FOCAL_E2E,
+                          camera_focal_lenth_y=FOCAL_E2E,
+                          get_embeddings_func=get_embedder("color"),
+                          log_enabled=False, device="cuda")
+    # the main path: every count from zero just before, read just after
+    sam_attention.launches = msda_gather.launches = 0
+    seg.encodes = gd.forwards = 0
+    t1 = time.perf_counter()
+    for i in (0, 2):
+        rgb, depth, _ = frames[i]
+        memory.process_image(rgb, depth, poses[i], consider_floor=True,
+                             min_points=50, outlier_removal_config=None)
+    memory.downsample_all_objects(voxel_size=0.02)
+    memory.recluster_objects_with_dbscan(eps=0.1, min_points_per_cluster=40)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t1) * 1e3
+    rgb, depth, _ = frames[1]
+    t2 = time.perf_counter()
+    est, (assn, _) = memory.localise(rgb, depth, outlier_removal_config=None)
+    torch.cuda.synchronize()
+    query_ms = (time.perf_counter() - t2) * 1e3
+    sam_launches, msda_launches = sam_attention.launches, msda_gather.launches
+    encodes, forwards = seg.encodes, gd.forwards
+
+    for view, phrases in zip((0, 2, 1), detector.frames):
+        log(f"cascade: view {view}: {len(phrases)} detections "
+            f"{dict(collections.Counter(phrases))}")
+    n_floor = 0 if memory.floors is None else memory.floors.num_points()
+    log(f"cascade: memory of {len(memory.memory)} objects and "
+        f"{n_floor} floor points built in {build_ms:.1f} ms (2 frames, "
+        f"first use included); view 1 localised in {query_ms:.1f} ms: "
+        f"pose {np.round(est, 4).tolist()}, assn {assn}")
+    n_global = len(scfg.global_blocks)
+    n_deform = (gcfg.encoder_layers + gcfg.decoder_layers) \
+        * gcfg.num_feature_levels
+    log(f"cascade: sam_attention launches {sam_launches} over {encodes} "
+        f"image encodes ({n_global} global blocks); msda_gather launches "
+        f"{msda_launches} over {forwards} GroundingDINO forwards "
+        f"({n_deform} levels x deformable layers)")
+    check(encodes > 0 and sam_launches == n_global * encodes,
+          f"cascade: {sam_launches} SAM kernel launches for {encodes} encodes")
+    check(forwards > 0 and msda_launches == n_deform * forwards,
+          f"cascade: {msda_launches} gather launches for {forwards} forwards")
+    est = np.asarray(est, np.float64)
+    check(est.shape == (7,) and bool(np.all(np.isfinite(est)))
+          and abs(np.linalg.norm(est[3:]) - 1.0) < 1e-3,
+          f"cascade: pose not finite with a unit quaternion: {est}")
+
+    # stage times (after the counted run)
+    raw = torch.as_tensor(frames[0][0], device="cuda")[None]
+    gdino_ms = sync_ms(lambda: gd.detect_all(frames[0][0], KEYWORDS))
+    with torch.no_grad():
+        img = canvas(raw, scfg.img_size, torch.bfloat16)
+        encode_ms = sync_ms(lambda: seg.model.image_encoder(img))
+        emb = seg.model.image_encoder(img)[0]
+        boxes = torch.tensor([[40.0, 60.0, 500.0, 700.0]] * 16,
+                             device="cuda")
+        decode_ms = sync_ms(lambda: seg.model.decode(emb, boxes))
+    log(f"cascade timing: GroundingDINO forward (detect_all) {gdino_ms:.1f} "
+        f"ms, SAM encode {encode_ms:.1f} ms, SAM decode of 16 boxes "
+        f"{decode_ms:.1f} ms, memory build {build_ms:.1f} ms, query "
+        f"{query_ms:.1f} ms")
+    log(f"cascade phase done in {time.perf_counter() - t0:.1f} s")
+    return sam_launches, msda_launches
+
+
+def phase_cascade_vs_cpu(workdir, frames):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from instance_based_loc_tpu_torch.models import gdino as G, sam as S
+    from instance_based_loc_tpu_torch.models.cascade import cxcywh_to_xyxy
+    from instance_based_loc_tpu_torch.models.wordpiece import (
+        WordPieceTokenizer)
+    from instance_based_loc_tpu_torch.ops import msda_gather, sam_attention
+    t0 = time.perf_counter()
+
+    def pair(model, init, seed, cast):
+        """The same random weights on the card (cast to bf16 as the
+        model's builder casts them) and the CPU (fp32)."""
+        card = model.to("cuda")
+        init(card, torch.Generator(device="cuda").manual_seed(seed))
+        cpu = type(model)(model.cfg)
+        cpu.load_state_dict({k: v.float().cpu()
+                             for k, v in card.state_dict().items()})
+        return cast(card, torch.bfloat16).eval(), cpu.eval()
+
+    rgb = frames[0][0]
+    raw = torch.as_tensor(rgb, device="cuda")[None]
+
+    # GroundingDINO, 1 encoder + 1 decoder layer, full width
+    gcfg = G.GDinoConfig(encoder_layers=1, decoder_layers=1)
+    gcard, gcpu = pair(G.GroundingDino(gcfg), G.init_params, 8,
+                       G.cast_for_inference)
+    tok = WordPieceTokenizer(write_vocab(workdir))
+    ids = [tok.cls_id]
+    for k in KEYWORDS:
+        ids += tok.encode(k + ".", add_special_tokens=False)
+    ids = np.asarray(ids + [tok.sep_id], np.int64)[None]
+    t = ids.shape[1]
+    ids = np.pad(ids, ((0, 0), (0, (-t) % 16)))
+    allowed, pos = G.make_text_masks(ids)
+    table = gcpu.model.text_backbone.embeddings.word_embeddings.weight
+    text = [torch.as_tensor(x) for x in (ids, allowed, pos, ids != 0)]
+    text.append(table[text[0]].detach())
+    images = G.device_preprocess(raw, gcfg.img_size, G.IMAGENET_MEAN,
+                                 G.IMAGENET_STD)
+    with torch.no_grad():
+        before = msda_gather.launches
+        lc, bc = gcard(images.to(torch.bfloat16),
+                       *[x.to("cuda") for x in text])
+        torch.cuda.synchronize()
+        check(msda_gather.launches == before + 2 * gcfg.num_feature_levels,
+              "cascade_vs_cpu: GroundingDINO missed the gather kernel")
+        qc = gcard.query_index.cpu()
+        lr, br = gcpu(images.cpu(), *text, query_index=qc)
+    overlap = len(set(qc[0].tolist()) & set(gcpu.query_index[0].tolist())) \
+        / gcfg.num_queries
+    lc, bc = lc.cpu()[..., :t], bc.cpu()
+    lr = lr[..., :t]
+    logit_rel = ((lc - lr).abs().max() / lr.abs().max()).item()
+    box_err = (bc - br).abs().max().item()
+    log(f"cascade_vs_cpu: GroundingDINO (1 + 1 layers, 800 px) card bf16 vs "
+        f"CPU fp32 on the same queries: logits max|diff| "
+        f"{(lc - lr).abs().max().item():.4g} = {logit_rel:.4f} of max|ref| "
+        f"{lr.abs().max().item():.4g} (gate {GDINO_LOGIT_REL_MAX}), boxes "
+        f"max|diff| {box_err:.4g} (gate {GDINO_BOX_MAX}); the CPU's own "
+        f"query selection shares {overlap:.3f} of the card's (gate "
+        f"{GDINO_QUERY_OVERLAP_MIN})")
+
+    # SAM-H width, 4 blocks (one global), 1024 px, prompted with the card's
+    # 8 best-scoring GroundingDINO boxes
+    scfg = S.SamConfig(encoder_depth=4, global_blocks=(3,))
+    scard, scpu = pair(S.Sam(scfg), S.init_params, 9,
+                       lambda m, dt: m.to(dt))
+    best = torch.sigmoid(lc).amax(dim=-1)[0].argsort(descending=True)[:8]
+    h, w = rgb.shape[:2]
+    boxes = torch.as_tensor(cxcywh_to_xyxy(bc[0, best].numpy(), w, h)
+                            * (scfg.img_size / max(h, w)), dtype=torch.float32)
+    with torch.no_grad():
+        before = sam_attention.launches
+        emb_c = scard.image_encoder(S.canvas(raw, scfg.img_size,
+                                             torch.bfloat16))[0]
+        mc, _ = scard.decode(emb_c, boxes.to("cuda"))
+        torch.cuda.synchronize()
+        check(sam_attention.launches == before + 1,
+              "cascade_vs_cpu: SAM missed the attention kernel")
+        emb_r = scpu.image_encoder(S.canvas(raw.cpu(), scfg.img_size,
+                                            torch.float32))[0]
+        mr, _ = scpu.decode(emb_r, boxes)
+    emb_c = emb_c.float().cpu()
+    cos = F.cosine_similarity(emb_c.flatten(), emb_r.flatten(), dim=0).item()
+    cos_px = F.cosine_similarity(emb_c, emb_r, dim=-1).min().item()
+    mask_rel = ((mc.float().cpu() - mr).abs().max() / mr.abs().max()).item()
+    log(f"cascade_vs_cpu: SAM (SAM-H width, 4 blocks, 1024 px) card bf16 vs "
+        f"CPU fp32: embedding cosine {cos:.6f} (per pixel min {cos_px:.6f}; "
+        f"gate {SAM_EMB_COS_MIN}), mask logits max|diff| "
+        f"{(mc.float().cpu() - mr).abs().max().item():.4g} = {mask_rel:.4f} "
+        f"of max|ref| {mr.abs().max().item():.4g} (gate {SAM_LOGIT_REL_MAX})")
+    check(cos >= SAM_EMB_COS_MIN, f"cascade_vs_cpu: SAM cosine {cos}")
+    check(mask_rel <= SAM_LOGIT_REL_MAX,
+          f"cascade_vs_cpu: SAM mask logits {mask_rel}")
+    check(logit_rel <= GDINO_LOGIT_REL_MAX,
+          f"cascade_vs_cpu: GroundingDINO logits {logit_rel}")
+    check(box_err <= GDINO_BOX_MAX,
+          f"cascade_vs_cpu: GroundingDINO boxes {box_err}")
+    check(overlap >= GDINO_QUERY_OVERLAP_MIN,
+          f"cascade_vs_cpu: query selections share only {overlap}")
+    log(f"cascade_vs_cpu phase done in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -302,10 +753,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         phase_color(scene_data, workdir)
     kernel["launches"] = phase_dino(scene_data)
+    sam = phase_sam_kernel()
+    msda = phase_msda_kernel()
+    frames, poses = e2e_frames()
+    with tempfile.TemporaryDirectory() as workdir:
+        sam["launches"], msda["launches"] = phase_cascade(workdir, frames,
+                                                          poses)
+        phase_cascade_vs_cpu(workdir, frames)
     log(f"all phases passed in {time.perf_counter() - T_START:.1f} s")
 
     print(card, flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": [kernel, sam, msda]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -268,6 +268,39 @@ def case_dbscan(rng):
     for eps, min_points in ((0.1, 5), (0.2, 12), (0.3, 40)):
         ref = jcl.dbscan(pts, eps, min_points, prefer_native=False)
         out.append((ref, clustering.dbscan(pts, eps, min_points), 0))
+    # the same surface seen by several overlapping objects (the cascade's
+    # many detections): dense sub-cells, plus scattered border and noise
+    grid = np.stack(np.meshgrid(np.arange(12), np.arange(12), indexing="ij"),
+                    -1).reshape(-1, 2) * 0.02
+    surface = np.concatenate([grid, np.zeros((len(grid), 1))], 1)
+    dense = np.concatenate([surface + 0.004 * rng.normal(size=surface.shape)
+                            for _ in range(8)]
+                           + [rng.uniform(-0.3, 0.5, size=(150, 3))])
+    for eps, min_points in ((0.05, 40), (0.1, 200)):
+        ref = jcl.dbscan(dense, eps, min_points, prefer_native=False)
+        out.append((ref, clustering.dbscan(dense, eps, min_points), 0))
+    # clusters on a 2 cm lattice in float32 (equal distances, ties at eps)
+    quant = (np.round(pts[::3] / 0.02) * 0.02).astype(np.float32)
+    for eps, min_points in ((0.02, 3), (0.1, 20)):
+        ref = jcl.dbscan(quant, eps, min_points, prefer_native=False)
+        out.append((ref, clustering.dbscan(quant, eps, min_points), 0))
+    # several small surfaces, each seen 1-12 times, and noise: core
+    # sub-cells next to sparse ones, so representatives and block searches
+    # both join clusters
+    parts = []
+    for _ in range(3):
+        side = rng.uniform(0.1, 0.3, size=2)
+        g = np.stack(np.meshgrid(np.arange(0, side[0], 0.02),
+                                 np.arange(0, side[1], 0.02), indexing="ij"),
+                     -1).reshape(-1, 2)
+        g = np.concatenate([g, np.zeros((len(g), 1))], 1) \
+            + rng.uniform(-0.5, 0.5, size=3)
+        parts += [g + rng.normal(scale=0.004, size=g.shape)
+                  for _ in range(rng.integers(1, 13))]
+    surf = np.concatenate(parts + [rng.uniform(-1, 1, size=(200, 3))])
+    for eps, min_points in ((0.03, 10), (0.05, 30), (0.1, 55)):
+        ref = jcl.dbscan(surf, eps, min_points, prefer_native=False)
+        out.append((ref, clustering.dbscan(surf, eps, min_points), 0))
     return out
 
 
