@@ -4,13 +4,17 @@
 Drives the port's main path on one CUDA card, in phases that each print a
 progress line and raise on failure:
 
-  1. build    nvcc builds the attention kernel into the package's _build/.
-  2. kernel   the kernel against its plain PyTorch version on the card: at the
-              DINOv2-base embedder's shape (16, 12, 257, 64) in bf16 (the
-              tensor-core path), also with valid_len < S, and at a small
-              shape in fp32 (the CUDA-core path); times the
-              kernel, the plain version and torch's scaled_dot_product_attention
-              (a yardstick only; the port never calls it).
+  1. build    nvcc builds the three kernels into the package's _build/, in
+              parallel, and logs each kernel's registers and spills
+              (ptxas) and the attention kernels' shared memory.
+  2. kernel   the ViT attention kernel against its plain PyTorch version on
+              the card: at the DINOv2-base embedder's shape (16, 12, 257, 64)
+              in bf16 (the TMA + wgmma path), also with valid_len < S, and
+              at a small shape in fp32 (the CUDA-core path); times the
+              kernel and torch's scaled_dot_product_attention (a yardstick
+              only; the port never calls it) on the device with
+              torch.profiler (the kernel is shorter than its wrapper's
+              launch), beside CUDA events per call and the plain version.
   3. color    bench.py's e2e scene (9 objects, 640x480, focal 525): build an
               object memory from views 0-5 with the `color` embedder,
               downsample, recluster with DBSCAN, localise views 6-8; each view
@@ -26,9 +30,10 @@ progress line and raise on failure:
               version at SAM-H (1, 16, 4096, 80), SAM-B (1, 12, 4096, 64) and
               48x64 and 48x48 grids, bf16; times the kernel, the plain
               version and scaled_dot_product_attention with the bias as a
-              mask (a yardstick only; the port never calls it) at SAM-H and
-              at 48x48, whose key-grid rows are not one 64-key tile (the
-              kernel's general bias path).
+              mask (a yardstick only; the port never calls it), with CUDA
+              events and on the device (torch.profiler), at SAM-H, SAM-B
+              and 48x48, whose key-grid rows are not 64 keys (the kernel's
+              general bias path).
   6. msda_kernel  the MSDA level-gather kernel against its plain version at
               GroundingDINO@800's level 0 (S = 100 x 100, H = 8, D = 32, bf16
               values) with encoder (Q = 13294) and decoder (Q = 900) queries,
@@ -102,29 +107,62 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 50) -> float:
-    """Mean device time of the kernels named `kernel` over `iters` calls of
-    fn(), from torch.profiler: for a kernel shorter than its Python
-    wrapper's launch, back-to-back CUDA events time the host instead."""
+def device_ms(fn, kernel: str | None = None, iters: int = 50) -> float:
+    """Mean device time per call of fn() from torch.profiler: of the kernel
+    named `kernel` (one launch per call), or of every kernel the call
+    launches (kernel=None, e.g. a library call that launches several). Each
+    kernel's mean duration times its launches per call, so a launch the
+    profiler drops now and then does not bias the figure. For a kernel
+    shorter than its Python wrapper's launch, back-to-back CUDA events time
+    the host instead."""
+    import collections
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    check(len(times) == iters, f"the profiler saw {len(times)} launches of "
-                               f"{kernel} for {iters} calls")
-    return sum(times) / len(times) / 1e3
+    for _ in range(3):   # a profiler window that caught no kernel is retried
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = collections.defaultdict(list)
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and (kernel is None or kernel in e.name)):
+                by_name[e.name].append(e.time_range.elapsed_us())
+        if by_name:
+            break
+    per_call = {name: round(len(t) / iters) for name, t in by_name.items()}
+    check(bool(by_name) and all(n >= 1 for n in per_call.values()),
+          f"the profiler saw kernels {dict((k, len(v)) for k, v in by_name.items())} "
+          f"for {iters} calls")
+    if kernel is not None:
+        check(sum(per_call.values()) == 1, f"{kernel} launched "
+                                           f"{per_call} times per call")
+    return sum(sum(t) / len(t) * per_call[name]
+               for name, t in by_name.items()) / 1e3
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel of an `nvcc -Xptxas -v` log: registers, spills,
+    and the stack frame."""
+    lines, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spills = line.split("'")[1], ""
+        elif "spill stores" in line and name is not None:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name is not None:
+            regs = line.split("Used", 1)[1].strip()
+            lines.append(f"{name}: {regs}; {spills}")
+            name = None
+    return lines
 
 
 def phase_build():
-    """nvcc for every kernel source, all started together."""
+    """nvcc for every kernel source, all started together; logs each
+    kernel's registers and spills (ptxas) and shared memory."""
     from concurrent.futures import ThreadPoolExecutor
     from instance_based_loc_tpu_torch.ops import (
         attention, cuda_build, msda_gather, sam_attention)
@@ -135,8 +173,14 @@ def phase_build():
     for source, info in zip(sources, infos):
         log(f"build: {source}: nvcc {info['seconds']:.1f} s -> "
             f"{info['path']}")
+        for line in ptxas_summary(info["log"]):
+            log(f"build: ptxas {line}")
         print(info["log"], flush=True)
-    log(f"build done in {time.perf_counter() - t0:.1f} s")
+    log(f"build done in {time.perf_counter() - t0:.1f} s; dynamic shared "
+        f"memory per block: vit_attention at (S = 257, bf16) "
+        f"{attention._smem_bytes(64, 257, 2)} B, sam_attention at SAM-H "
+        f"{sam_attention._smem_bytes(80, 64, 64)} B, at a 48x48 grid "
+        f"{sam_attention._smem_bytes(80, 48, 48)} B")
 
 
 def phase_kernel():
@@ -180,18 +224,24 @@ def phase_kernel():
 
     b, h, s, d = 16, 12, 257, 64
     q, k, v = qkv((b, h, s, d), torch.bfloat16)
-    kernel_ms = time_ms(lambda: attention.vit_attention(q, k, v))
+    call_ms = time_ms(lambda: attention.vit_attention(q, k, v))
     plain_ms = time_ms(lambda: attention.vit_attention_reference(q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    sdpa_call_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    # the kernel is shorter than its wrapper's launch: its time, and SDPA's,
+    # are device times from the profiler
+    kernel_ms = device_ms(lambda: attention.vit_attention(q, k, v),
+                          "vit_attention")
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     bytes_moved = 4 * b * h * s * d * q.element_size()
     flops = 4 * b * h * s * s * d
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_BF16_FLOP_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
     log(f"kernel timing at ({b}, {h}, {s}, {d}) bf16: kernel {kernel_ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-        f"{bound_ms * 1e3:.2f} us ({bytes_moved / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP)")
+        f"ms on the device ({call_ms:.4f} ms per back-to-back call), plain "
+        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms on the device "
+        f"({sdpa_call_ms:.4f} ms per call), bound {bound_ms * 1e3:.2f} us "
+        f"({bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     log(f"kernel phase done in {time.perf_counter() - t0:.1f} s")
     return {"name": "vit_attention", "route": "cuda",
             "source": "instance_based_loc_tpu_torch/csrc/vit_attention.cu",
@@ -417,11 +467,15 @@ def phase_sam_kernel():
         q, k, v, bias_h, bias_w = args
         b, h, s, d = q.shape
         kernel_ms = time_ms(lambda: sa.sam_attention(*args), iters=20)
+        kernel_dev_ms = device_ms(lambda: sa.sam_attention(*args),
+                                  "sam_attention", iters=20)
         plain_ms = time_ms(lambda: sa.sam_attention_reference(*args),
                            iters=3, warmup=1)
         mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(
             b, h, s, s)
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), iters=20)
+        library_dev_ms = device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask), iters=20)
         del mask
         bytes_moved = sum(x.numel() * x.element_size() for x in args) \
@@ -429,14 +483,16 @@ def phase_sam_kernel():
         flops = 4 * b * h * s * s * d
         bound_ms, bound_by = bound(bytes_moved, flops, H100_BF16_FLOP_PER_S)
         log(f"sam_kernel timing at {name} ({b}, {h}, {s}, {d}) bf16: kernel "
-            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa with the "
-            f"bias as mask {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} "
-            f"us by {bound_by} ({bytes_moved / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP)")
+            f"{kernel_ms:.4f} ms ({kernel_dev_ms:.4f} ms on the device), "
+            f"plain {plain_ms:.4f} ms, sdpa with the bias as mask "
+            f"{library_ms:.4f} ms ({library_dev_ms:.4f} ms on the device), "
+            f"bound {bound_ms * 1e3:.2f} us by {bound_by} "
+            f"({bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
 
     kernel_ms, plain_ms, library_ms, bound_ms, bound_by = timing(
         "SAM-H", inputs(1, 16, 64, 64, 80))
+    timing("SAM-B", inputs(1, 12, 64, 64, 64))
     # WK != 64: the kernel's general bias path (bias_w from shared memory)
     timing("SAM-H width, 48x48 grid", inputs(1, 16, 48, 48, 80))
     log(f"sam_kernel phase done in {time.perf_counter() - t0:.1f} s")

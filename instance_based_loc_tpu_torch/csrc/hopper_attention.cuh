@@ -1,0 +1,346 @@
+// Hopper (sm_90a) building blocks shared by the attention kernels
+// (vit_attention.cu, sam_attention.cu): tensor maps for TMA, mbarriers,
+// TMA tile loads, wgmma shared-memory descriptors and the wgmma products
+// the kernels issue.
+//
+// Shared-memory tiles are rows of 64 bf16 (128 B) under the 128-byte swizzle,
+// or rows of 16 bf16 (32 B) under the 32-byte swizzle; TMA writes them and
+// wgmma reads them with the same swizzle, so neither side has bank
+// conflicts. Every tile starts on a 1024-byte boundary (the 128-byte
+// swizzle's repeat), so the swizzle phase of a row is its index mod 8.
+//
+// Tensor maps are encoded on the host by cuTensorMapEncodeTiled, fetched
+// with cudaGetDriverEntryPoint, so the library links the CUDA runtime only.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+// ---------------------------------------------------------------- host
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A map over a contiguous bf16 array viewed as (heads, rows, cols), cols
+// innermost, that loads boxes of `box_rows` x `box_cols` of one head:
+// box_cols = 64 with the 128-byte swizzle, 16 with the 32-byte one. Rows
+// past `rows` read as zeros. Returns false if the map cannot be encoded.
+inline bool encode_bf16_map(CUtensorMap* map, const void* base, int heads,
+                            int rows, int cols, int box_rows, int box_cols) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = box_cols == 64
+                                         ? CU_TENSOR_MAP_SWIZZLE_128B
+                                         : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(base), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Raise a kernel's dynamic shared-memory limit once per size, not per
+// launch (one card per process).
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* allowed) {
+  if (bytes <= *allowed) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) *allowed = bytes;
+  return err;
+}
+
+// -------------------------------------------------------------- device
+
+constexpr int kSw128TileBytes = 64 * 64 * 2;   // 64 rows of 64 bf16
+constexpr int kSw32TileBytes = 64 * 16 * 2;    // 64 rows of 16 bf16
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte boundary at or after p (dynamic shared memory carries
+// 1024 bytes of slack for it).
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Makes initialised barriers visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the barrier's phase with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// TMA: box (col, row, head) of `map` into shared memory at dst, completing
+// on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row,
+                                         int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(head)
+      : "memory");
+}
+
+// Named barrier over `threads` threads (one warpgroup: 128).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kRegs));
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle (1: 128 B, 3: 32 B).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t swizzle) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
+         ((uint64_t)sbo << 32) | (swizzle << 62);
+}
+
+// K-major operand (rows of the product, the 16-deep k slice contiguous):
+// rows of 128 B (k-step ks at +32 B) or of 32 B; 8-row groups 1024 B or
+// 256 B apart.
+__device__ __forceinline__ uint64_t desc_k_sw128(uint32_t tile, int ks) {
+  return make_desc(tile + ks * 32, 1, 64, 1);
+}
+__device__ __forceinline__ uint64_t desc_k_sw32(uint32_t tile) {
+  return make_desc(tile, 1, 16, 3);
+}
+
+// MN-major B operand (k rows of N contiguous columns): the 16 keys of
+// k-step kk start at row 16 kk; 8-key groups 1024 B or 256 B apart.
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 16 * 128, 1, 64, 1);
+}
+__device__ __forceinline__ uint64_t desc_mn_sw32(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 16 * 32, 1, 16, 3);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// 2^x on the special-function unit (relative error ~2^-22; results below
+// 2^-126 flush to zero, which the softmax sums cannot tell from 0).
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Register fragments (PTX wgmma layouts): thread t of the warpgroup, warp
+// w = t / 32, lane = 4 g + q. Accumulator of m64nN: d[4 j + e] holds row
+// 16 w + g (e < 2) or 16 w + g + 8 (e >= 2), column 8 j + 2 q + e % 2.
+// A fragment of m64nNk16: a[0] row 16 w + g, columns 2 q, 2 q + 1; a[1] row
+// + 8; a[2], a[3] the same rows at columns + 8.
+
+// d (64 x 128, fp32) += a (64 x 16) * b (128 x 16)^T, a and b bf16 in shared
+// memory, both K-major; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64, fp32) += a (64 x 16) * b (64 x 16)^T, a and b bf16 in shared
+// memory, both K-major; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 16, fp32) += a (64 x 16) * b (16 x 16)^T, a and b bf16 in shared
+// memory, both K-major; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// m64nNk16 with both operands in shared memory, N in {16, 64, 128}.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (N == 128)
+    wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 64)
+    wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_m64n16k16_ss(d, desc_a, desc_b, scale_d);
+}
+
+// d (64 x 64, fp32) += a (64 x 16, bf16 fragments in registers) * b (16 x 64,
+// bf16 in shared memory, MN-major: the 64 columns contiguous).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 16, fp32) += a (64 x 16, bf16 fragments in registers) * b (16 x 16,
+// bf16 in shared memory, MN-major: the 16 columns contiguous).
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+}  // namespace hopper

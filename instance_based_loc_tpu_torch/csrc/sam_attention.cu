@@ -11,112 +11,110 @@
 // over S = HK * WK keys. As on the TPU: q, k and v enter the products as
 // bf16 with fp32 accumulation, the bias is added and the softmax taken in
 // fp32, P is rounded to bf16 for P.V, and the output is written in the
-// input type. (fp32 callers hand in q, k, v rounded to bf16, which is what
-// the TPU kernel's DEFAULT-precision dots do with fp32 operands.)
+// input type from the fp32 accumulators. (fp32 callers hand in q, k, v
+// rounded to bf16, which is what the TPU kernel's DEFAULT-precision dots do
+// with fp32 operands.)
 //
 // Bound at SAM-H's global blocks (B = 1, H = 16, S = 4096, D = 80, bf16) on
 // an H100 SXM: the two products are 4 * B * H * S^2 * D = 85.9 GFLOP, 87 us
 // at 989 TFLOP/s; reading q, k, v, bias_h, bias_w and writing out is 58.7 MB,
-// 18 us at 3.35 TB/s. So the kernel is bound by operations. At SAM-B
-// (1, 12, 4096, 64): 51.5 GFLOP, 52 us.
+// 18 us at 3.35 TB/s. So the kernel is bound by operations, and the design
+// feeds the tensor cores through wgmma, their only full-rate path, with
+// operands straight from shared memory:
 //
-// The TPU kernel keeps one head's whole K and V in VMEM (1.3 MB at S = 4096,
-// D = 80). A block here has at most 227 KB of shared memory, so K and V
-// stream through it FlashAttention-2 style:
-//
-// * one block per (128 query rows, batch * head), 8 warps of 16 rows each;
-// * K and V tiles of 64 keys are copied with cp.async into a double buffer,
-//   the next tile in flight while the current one is used; rows carry 16
-//   bytes of padding so fragment loads (ldmatrix) hit distinct banks;
-// * Q.K^T and P.V run on the tensor cores as mma.sync m16n8k16 (bf16 in,
-//   fp32 accumulate) with an online softmax, so scores, P and the output
-//   accumulator stay in registers: the (S, S) scores never reach memory;
-// * the bias is never expanded in memory either. The block copies its 128
-//   rows of bias_h (128 x HK) into shared memory once, as fp32 scaled by
-//   log2(e). When a key grid row is one key tile (WK = 64, SAM's 1024 px
-//   and 768 x 1024 px canvases), tile ci is grid row ci: each score adds
-//   the scalar bias_h[i, ci] and bias_w[i, its column], and a lane's 16
-//   columns are the same in every tile, so its bias_w values sit in
-//   registers for the whole loop. Other widths keep bias_w in shared memory
-//   too and look both terms up per score (key j -> row j / WK, column
-//   j % WK, stepped incrementally, no division in the inner loop). The TPU
-//   kernel's 0/1 expansion matmuls were a Mosaic workaround and have no
-//   counterpart here.
-//
-// Head sizes 64 (SAM-B/L) and 80 (SAM-H): D = 80 is 5 k-steps of the
-// m16n8k16 product for Q.K^T and 10 n-tiles for P.V. Tail query rows and
-// tail keys (S not a multiple of 128 or 64) are masked. wgmma and TMA are
-// left for later work.
+// * one block per (128 query rows, batch * head), one per SM: a producer
+//   warpgroup, whose first warp issues every TMA load (the others retire at
+//   once) and which gives its registers up with setmaxnreg, and two
+//   consumer warpgroups of 64 query rows each, which take them (240 each);
+// * Q is loaded once by TMA; K and V stream in 128-key tiles through a ring
+//   of three stages, each with a "full" mbarrier (TMA bytes arrived) and an
+//   "empty" one (every consumer warp done), so no __syncthreads runs in the
+//   key loop. TMA zero-fills rows past S (a 3-D map: column, row, head);
+// * Q.K^T is wgmma m64n128k16 with both operands in shared memory; the
+//   scores stay in registers through an online softmax in fp32; P is
+//   rounded to bf16 into wgmma's register A fragments; P.V is wgmma with V
+//   read MN-major from shared memory. The loop is software-pipelined as in
+//   FlashAttention-3: Q.K^T of tile ci and P.V of tile ci - 1 are issued
+//   together, and the softmax of tile ci runs while P.V is on the tensor
+//   cores; no register of an in-flight product is written meanwhile (O is
+//   rescaled before P.V is issued, P converted after it is done), so the
+//   compiler does not serialise the products;
+// * head size 80 (SAM-H): a 160-byte row does not fit the 128-byte swizzle
+//   that wgmma reads, so each operand row is split into a 64-column part
+//   (128-byte swizzle) and a 16-column part (32-byte swizzle), two maps per
+//   operand; Q.K^T adds a fifth k-step on the 16-column parts, and P.V is
+//   m64n64k16 plus m64n16k16 into a separate 16-column accumulator;
+// * the bias is never expanded in memory. Each warp copies its 16 rows of
+//   bias_h into shared memory once, as fp32 scaled by log2(e). When a key
+//   grid row is 64 keys (WK = 64, SAM's 1024 px and 768 x 1024 px
+//   canvases), a tile is two grid rows: a thread's accumulator columns fall
+//   on the same grid columns in every tile, so its 2 rows x 16 bias_w values
+//   stay in registers for the whole loop, and bias_h, one value per row and
+//   grid row, joins each score only in the row maximum and the exponent.
+//   Other widths keep bias_w rows in shared memory too and look both terms
+//   up per score (key j -> row j / WK, column j % WK, stepped
+//   incrementally); keys past S are masked. The TPU kernel's 0/1 expansion
+//   matmuls were a Mosaic workaround and have no counterpart here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_attention.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRows = kWarps * 16;   // query rows per block
-constexpr int kChunk = 64;           // keys per K/V tile
+constexpr int kConsumers = 2;                    // warpgroups of 64 rows
+constexpr int kRows = kConsumers * 64;           // query rows per block
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr int kChunk = 128;                      // keys per K/V tile
+constexpr int kGridRow = 64;   // key-grid width whose rows fill a tile
+constexpr int kRowsPerTile = kChunk / kGridRow;
+constexpr int kHalves = kChunk / 64;   // 64-row TMA boxes per K/V tile
+// K/V ring depth: a tile is released one tile after its Q.K^T (once its
+// P.V is done), so the third stage keeps one load in flight ahead
+constexpr int kStages = 3;
+constexpr int kProducerRegs = 24;
+// what the producer warpgroup gives up, shared among the consumers
+constexpr int kConsumerRegs =
+    (65536 / kThreads + (65536 / kThreads - kProducerRegs) / kConsumers) / 8 * 8;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__host__ __device__ constexpr int kv_stride(int d) { return d + 8; }
+// bytes of one 64-row tile of q, k or v: the 64-column part, plus the
+// 16-column part at D = 80
+__host__ __device__ constexpr int op_bytes(int d) {
+  return hopper::kSw128TileBytes + (d == 80 ? hopper::kSw32TileBytes : 0);
+}
+
+// bytes of one kChunk-row tile of k or v: the 64-row boxes of the
+// 64-column part, then those of the 16-column part
+__host__ __device__ constexpr int kv_bytes(int d) {
+  return (kChunk / 64) * op_bytes(d);
+}
+
 // fp32 words per shared bias row: a multiple of 32 plus 8, so the 8 rows one
 // warp's lanes read start on different banks
 __host__ __device__ constexpr int bias_stride(int n) {
   return (n + 31) / 32 * 32 + 8;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// Shared bias_w rows per block: none when a key-grid row is half a tile.
+__host__ __device__ constexpr int bias_w_stride(int wk) {
+  return wk == kGridRow ? 0 : bias_stride(wk);
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(bytes));
+size_t smem_bytes(int d, int hk, int wk) {
+  return 1024 + (size_t)kConsumers * op_bytes(d) +
+         (size_t)kStages * 2 * kv_bytes(d) +
+         (size_t)kRows * (bias_stride(hk) + bias_w_stride(wk)) * sizeof(float) +
+         (1 + 2 * kStages) * sizeof(uint64_t);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
+struct SamMaps {
+  CUtensorMap q, k, v;                  // 64-column boxes, 128-byte swizzle
+  CUtensorMap q_tail, k_tail, v_tail;   // D = 80: 16-column boxes, 32-byte
+};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -128,204 +126,250 @@ __device__ __forceinline__ void store_pair(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
                                            float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+  *reinterpret_cast<uint32_t*>(p) = hopper::pack_bf16(a, b);
 }
 
-// Copy keys [kc, kc + kChunk) of one head's K and V into shared memory
-// (cp.async, one group); keys past s are zero-filled.
+// Loads `tiles` 64-row tiles of an operand from `row` on: their 64-column
+// parts back to back, then their 16-column parts at D = 80.
 template <int D>
-__device__ __forceinline__ void load_kv(__nv_bfloat16* k_dst,
-                                        __nv_bfloat16* v_dst,
-                                        const __nv_bfloat16* k,
-                                        const __nv_bfloat16* v, size_t base,
-                                        int kc, int s) {
-  constexpr int kVecs = D / 8;   // 16-byte vectors per row
-  for (int i = threadIdx.x; i < kChunk * kVecs; i += blockDim.x) {
-    const int r = i / kVecs;
-    const int c = i - r * kVecs;
-    const int key = kc + r;
-    const int bytes = key < s ? 16 : 0;
-    const size_t src = base + (size_t)(key < s ? key : 0) * D + c * 8;
-    cp_async16(smem_u32(k_dst + r * kv_stride(D) + c * 8), k + src, bytes);
-    cp_async16(smem_u32(v_dst + r * kv_stride(D) + c * 8), v + src, bytes);
+__device__ __forceinline__ void load_rows(unsigned char* dst,
+                                          const CUtensorMap* map,
+                                          const CUtensorMap* tail_map,
+                                          uint64_t* bar, int row, int head,
+                                          int tiles) {
+  using namespace hopper;
+  for (int i = 0; i < tiles; ++i) {
+    tma_load(dst + i * kSw128TileBytes, map, bar, 0, row + 64 * i, head);
+    if (D == 80)
+      tma_load(dst + tiles * kSw128TileBytes + i * kSw32TileBytes, tail_map,
+               bar, 64, row + 64 * i, head);
   }
-  cp_async_commit();
 }
 
-// Shared bias_w rows per block: none when a key tile is one grid row.
-__host__ __device__ constexpr int bias_w_stride(int wk) {
-  return wk == kChunk ? 0 : bias_stride(wk);
-}
-
-// Fragment layout (PTX m16n8k16): lane = 4 * g + t. A regs: (row g, cols
-// 2t..2t+1), (row g+8, same), (row g, cols 2t+8..), (row g+8, cols 2t+8..).
-// B regs: (rows 2t..2t+1, col g), (rows 2t+8.., col g). C: c0,c1 at (row g,
-// cols 2t, 2t+1), c2,c3 at (row g+8, same cols).
-// kRowTiles: WK == kChunk, so key tile ci is key grid row ci.
+// Thread layout of a consumer warpgroup (hopper_attention.cuh): lane =
+// 4 g + t holds rows g and g + 8 of its warp's 16, and columns 8 j + 2 t + e
+// of every accumulator: sc[4 j + e] (row g), sc[4 j + 2 + e] (row g + 8).
+// kRowTiles: WK == kGridRow, so key tile ci is key-grid rows kRowsPerTile ci
+// on.
 template <int D, typename T, bool kRowTiles>
-__global__ void __launch_bounds__(kWarps * 32)
-    sam_attention_mma(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const T* __restrict__ bias_h,
-                      const T* __restrict__ bias_w, T* __restrict__ out,
-                      int s, int hk, int wk, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem[];
+__global__ void __launch_bounds__(kThreads, 1)
+    sam_attention_wgmma(const __grid_constant__ SamMaps maps,
+                        const T* __restrict__ bias_h,
+                        const T* __restrict__ bias_w, T* __restrict__ out,
+                        int s, int hk, int wk, float scale_log2) {
+  using namespace hopper;
+  constexpr int kOp = op_bytes(D);
+  constexpr int kKv = kv_bytes(D);
+  constexpr int kTailAt = kHalves * kSw128TileBytes;   // 16-column part
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* q_s = smem;                        // kConsumers tiles
+  unsigned char* ring = q_s + kConsumers * kOp;     // stage: K tile, V tile
   const int hkp = bias_stride(hk);
   const int wkp = bias_w_stride(wk);
-  float* bh_s = reinterpret_cast<float*>(smem);
+  float* bh_s = reinterpret_cast<float*>(ring + kStages * 2 * kKv);
   float* bw_s = bh_s + kRows * hkp;
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(bw_s + kRows * wkp);
-  constexpr int kTile = kChunk * kv_stride(D);   // bf16 per K or V tile
-  __nv_bfloat16* v_s = k_s + 2 * kTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(bw_s + kRows * wkp);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
 
-  const size_t base = (size_t)blockIdx.y * s * D;
+  const int head = blockIdx.y;
   const int row0 = blockIdx.x * kRows;
   const int n_chunks = (s + kChunk - 1) / kChunk;
-  load_kv<D>(k_s, v_s, k, v, base, 0, s);
-
-  // this block's bias rows, as fp32 in log2 units; rows past s are zero
-  {
-    const size_t bh_base = ((size_t)blockIdx.y * s + row0) * hk;
-    const int bh_end = (s - row0) * hk;
-    for (int i = threadIdx.x; i < kRows * hk; i += blockDim.x) {
-      const int r = i / hk;
-      bh_s[r * hkp + (i - r * hk)] =
-          i < bh_end ? to_float(bias_h[bh_base + i]) * kLog2e : 0.f;
-    }
-    if (!kRowTiles) {
-      const size_t bw_base = ((size_t)blockIdx.y * s + row0) * wk;
-      const int bw_end = (s - row0) * wk;
-      for (int i = threadIdx.x; i < kRows * wk; i += blockDim.x) {
-        const int r = i / wk;
-        bw_s[r * wkp + (i - r * wk)] =
-            i < bw_end ? to_float(bias_w[bw_base + i]) * kLog2e : 0.f;
-      }
-    }
-  }
-
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, kConsumers * 4);   // one arrival per warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // producer warpgroup: one thread issues every load
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == 0 && lane == 0) {
+      mbar_expect_tx(q_full, kConsumers * kOp);
+      for (int w = 0; w < kConsumers; ++w)
+        load_rows<D>(q_s + w * kOp, &maps.q, &maps.q_tail, q_full,
+                     row0 + 64 * w, head, 1);
+      for (int ci = 0; ci < n_chunks; ++ci) {
+        const int st = ci % kStages;
+        mbar_wait(empty + st, ((ci / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + st, 2 * kKv);
+        unsigned char* kt = ring + st * 2 * kKv;
+        load_rows<D>(kt, &maps.k, &maps.k_tail, full + st, ci * kChunk, head,
+                     kHalves);
+        load_rows<D>(kt + kKv, &maps.v, &maps.v_tail, full + st, ci * kChunk,
+                     head, kHalves);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: block rows 64 wg ...; this warp's 16 from wr0
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp / 4 - 1;
+  const int wr0 = wg * 64 + (warp % 4) * 16;
   const int g = lane / 4;
   const int t = lane % 4;
-  const int rl_lo = warp * 16 + g;   // this lane's rows within the block
+  const int rl_lo = wr0 + g;   // this lane's rows within the block
   const int rl_hi = rl_lo + 8;
   const int r_lo = row0 + rl_lo;
   const int r_hi = row0 + rl_hi;
 
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const int c = ks * 16 + 2 * t;
-    const __nv_bfloat16* q_lo = q + base + (size_t)r_lo * D + c;
-    const __nv_bfloat16* q_hi = q + base + (size_t)r_hi * D + c;
-    qa[ks][0] = r_lo < s ? *reinterpret_cast<const uint32_t*>(q_lo) : 0u;
-    qa[ks][1] = r_hi < s ? *reinterpret_cast<const uint32_t*>(q_hi) : 0u;
-    qa[ks][2] = r_lo < s ? *reinterpret_cast<const uint32_t*>(q_lo + 8) : 0u;
-    qa[ks][3] = r_hi < s ? *reinterpret_cast<const uint32_t*>(q_hi + 8) : 0u;
+  // this warp's bias rows, as fp32 in log2 units; rows past s are zero
+  {
+    const size_t bh_base = ((size_t)head * s + row0 + wr0) * hk;
+    const int bh_end = (s - row0 - wr0) * hk;
+    for (int i = lane; i < 16 * hk; i += 32) {
+      const int r = i / hk;
+      bh_s[(wr0 + r) * hkp + (i - r * hk)] =
+          i < bh_end ? to_float(bias_h[bh_base + i]) * kLog2e : 0.f;
+    }
+    if (!kRowTiles) {
+      const size_t bw_base = ((size_t)head * s + row0 + wr0) * wk;
+      const int bw_end = (s - row0 - wr0) * wk;
+      for (int i = lane; i < 16 * wk; i += 32) {
+        const int r = i / wk;
+        bw_s[(wr0 + r) * wkp + (i - r * wk)] =
+            i < bw_end ? to_float(bias_w[bw_base + i]) * kLog2e : 0.f;
+      }
+    }
+    __syncwarp();
   }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;   // running max (log2 units)
-  float l_lo = 0.f, l_hi = 0.f;               // this lane's share of the sum
   const float* bh_lo = bh_s + rl_lo * hkp;
   const float* bh_hi = bh_s + rl_hi * hkp;
   const float* bw_lo = bw_s + rl_lo * wkp;
   const float* bw_hi = bw_s + rl_hi * wkp;
-  // kRowTiles: this lane's bias_w columns nt * 8 + 2t + e, in log2 units
-  float bwr_lo[kChunk / 8][2], bwr_hi[kChunk / 8][2];
+  // kRowTiles: this lane's bias_w columns 8 j + 2 t + e, in log2 units
+  float bwr_lo[kGridRow / 8][2], bwr_hi[kGridRow / 8][2];
   if (kRowTiles) {
-    const T* w_lo = bias_w + ((size_t)blockIdx.y * s + r_lo) * wk;
-    const T* w_hi = bias_w + ((size_t)blockIdx.y * s + r_hi) * wk;
+    const T* w_lo = bias_w + ((size_t)head * s + r_lo) * wk;
+    const T* w_hi = bias_w + ((size_t)head * s + r_hi) * wk;
 #pragma unroll
-    for (int nt = 0; nt < kChunk / 8; ++nt) {
+    for (int j = 0; j < kGridRow / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int c = nt * 8 + 2 * t + e;
-        bwr_lo[nt][e] = r_lo < s ? to_float(w_lo[c]) * kLog2e : 0.f;
-        bwr_hi[nt][e] = r_hi < s ? to_float(w_hi[c]) * kLog2e : 0.f;
+        const int c = 8 * j + 2 * t + e;
+        bwr_lo[j][e] = r_lo < s ? to_float(w_lo[c]) * kLog2e : 0.f;
+        bwr_hi[j][e] = r_hi < s ? to_float(w_hi[c]) * kLog2e : 0.f;
       }
     }
   }
 
-  for (int ci = 0; ci < n_chunks; ++ci) {
+  float o[32], ot[8];   // P.V accumulators: columns 0-63, and 64-79 at D = 80
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) ot[i] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY;   // running max (log2 units)
+  float l_lo = 0.f, l_hi = 0.f;               // this lane's share of the sum
+  const uint32_t q_addr = smem_u32(q_s + wg * kOp);
+  mbar_wait(q_full, 0);
+
+  // S = Q.K^T of the tile in stage st (issued, not waited for)
+  auto issue_qk = [&](float (&sc)[kChunk / 2], int st) {
+    const uint32_t k_addr = smem_u32(ring + st * 2 * kKv);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss<kChunk>(sc, desc_k_sw128(q_addr, ks), desc_k_sw128(k_addr, ks),
+                       ks);
+    if (D == 80)
+      wgmma_ss<kChunk>(sc, desc_k_sw32(q_addr + kSw128TileBytes),
+                       desc_k_sw32(k_addr + kTailAt), 1);
+    wgmma_commit();
+  };
+  // O += P.V of the tile in stage st (issued, not waited for)
+  auto issue_pv = [&](const uint32_t (&pa)[kChunk / 16][4], int st) {
+    const uint32_t v_addr = smem_u32(ring + st * 2 * kKv) + kKv;
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      wgmma_m64n64k16_rs(o, pa[kk], desc_mn_sw128(v_addr, kk));
+      if (D == 80)
+        wgmma_m64n16k16_rs(ot, pa[kk], desc_mn_sw32(v_addr + kTailAt, kk));
+    }
+    wgmma_commit();
+  };
+  // Scale, bias and mask the scores of tile ci, update the running max and
+  // sum, and turn the scores into P (fp32, in place). Returns the factors by
+  // which O must be rescaled.
+  auto softmax = [&](float (&sc)[kChunk / 2], int ci, float& a_lo,
+                     float& a_hi) {
     const int kc = ci * kChunk;
-    const int stage = ci & 1;
-    if (ci + 1 < n_chunks) {
-      load_kv<D>(k_s + (stage ^ 1) * kTile, v_s + (stage ^ 1) * kTile, k, v,
-                 base, kc + kChunk, s);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* kt = k_s + stage * kTile;
-    const __nv_bfloat16* vt = v_s + stage * kTile;
-
-    float sc[kChunk / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kChunk / 8; ++nt)
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-    // Q.K^T. ldmatrix.x4: lane i points at row i % 8 of 8x8 matrix i / 8
-    // (keys +8 for the upper two matrices, columns +8 for odd ones) and
-    // receives (key g; columns 2t, 2t+1) of each: b0, b1 of two n-tiles
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-#pragma unroll
-      for (int np = 0; np < kChunk / 16; ++np) {
-        const int key = np * 16 + (lane / 16) * 8 + lane % 8;
-        const int col = ks * 16 + (lane / 8 % 2) * 8;
-        uint32_t b[4];
-        ldmatrix_x4(b, smem_u32(kt + key * kv_stride(D) + col));
-        mma_bf16(sc[2 * np], qa[ks], b[0], b[1]);
-        mma_bf16(sc[2 * np + 1], qa[ks], b[2], b[3]);
-      }
-    }
-
     float cm_lo = -INFINITY, cm_hi = -INFINITY;
+    // per grid row of the tile, the bias_h term each score of that row
+    // leaves out until its exponential (0 on the general path)
+    float b_lo[kRowsPerTile], b_hi[kRowsPerTile];
     if (kRowTiles) {
-      // grid row ci: every key of the tile is valid (s = hk * kChunk)
-      const float b_lo = bh_lo[ci];
-      const float b_hi = bh_hi[ci];
+      // grid rows kRowsPerTile ci on; with two per tile the second is past
+      // the grid when HK is odd. sc keeps q.k scaled plus bias_w; the
+      // row's maximum adds bias_h once
 #pragma unroll
-      for (int nt = 0; nt < kChunk / 8; ++nt) {
+      for (int half = 0; half < kRowsPerTile; ++half) {
+        const int row = kRowsPerTile * ci + half;
+        b_lo[half] = b_hi[half] = 0.f;
+        float hm_lo = -INFINITY, hm_hi = -INFINITY;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          sc[nt][e] = sc[nt][e] * scale_log2 + (b_lo + bwr_lo[nt][e]);
-          sc[nt][2 + e] = sc[nt][2 + e] * scale_log2 + (b_hi + bwr_hi[nt][e]);
-          cm_lo = fmaxf(cm_lo, sc[nt][e]);
-          cm_hi = fmaxf(cm_hi, sc[nt][2 + e]);
+        for (int jj = 0; jj < kGridRow / 8; ++jj) {
+          const int j = half * (kGridRow / 8) + jj;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            sc[4 * j + e] = fmaf(sc[4 * j + e], scale_log2, bwr_lo[jj][e]);
+            sc[4 * j + 2 + e] =
+                fmaf(sc[4 * j + 2 + e], scale_log2, bwr_hi[jj][e]);
+            hm_lo = fmaxf(hm_lo, sc[4 * j + e]);
+            hm_hi = fmaxf(hm_hi, sc[4 * j + 2 + e]);
+          }
+        }
+        if (row < hk) {
+          b_lo[half] = bh_lo[row];
+          b_hi[half] = bh_hi[row];
+          cm_lo = fmaxf(cm_lo, hm_lo + b_lo[half]);
+          cm_hi = fmaxf(cm_hi, hm_hi + b_hi[half]);
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < kGridRow / 8; ++jj) {
+            const int j = half * (kGridRow / 8) + jj;
+            sc[4 * j] = sc[4 * j + 1] = sc[4 * j + 2] = sc[4 * j + 3] =
+                -INFINITY;
+          }
         }
       }
     } else {
-      // scale, bias, mask. Key j of this lane's first column: (ky, kx) with
-      // j = ky * wk + kx, stepped by 8 per n-tile
-      int j = kc + 2 * t;
-      int ky = j / wk;
-      int kx = j - ky * wk;
 #pragma unroll
-      for (int nt = 0; nt < kChunk / 8; ++nt) {
+      for (int half = 0; half < kRowsPerTile; ++half)
+        b_lo[half] = b_hi[half] = 0.f;
+      // key jk of this lane's first column: (ky, kx) with jk = ky * wk + kx,
+      // stepped by 8 per column block
+      int jk = kc + 2 * t;
+      int ky = jk / wk;
+      int kx = jk - ky * wk;
+#pragma unroll
+      for (int j = 0; j < kChunk / 8; ++j) {
         int y = ky, x = kx;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          if (j + e < s) {
-            sc[nt][e] = sc[nt][e] * scale_log2 + bh_lo[y] + bw_lo[x];
-            sc[nt][2 + e] = sc[nt][2 + e] * scale_log2 + bh_hi[y] + bw_hi[x];
+          if (jk + e < s) {
+            sc[4 * j + e] = sc[4 * j + e] * scale_log2 + bh_lo[y] + bw_lo[x];
+            sc[4 * j + 2 + e] =
+                sc[4 * j + 2 + e] * scale_log2 + bh_hi[y] + bw_hi[x];
           } else {
-            sc[nt][e] = -INFINITY;
-            sc[nt][2 + e] = -INFINITY;
+            sc[4 * j + e] = -INFINITY;
+            sc[4 * j + 2 + e] = -INFINITY;
           }
-          cm_lo = fmaxf(cm_lo, sc[nt][e]);
-          cm_hi = fmaxf(cm_hi, sc[nt][2 + e]);
+          cm_lo = fmaxf(cm_lo, sc[4 * j + e]);
+          cm_hi = fmaxf(cm_hi, sc[4 * j + 2 + e]);
           if (++x == wk) {
             x = 0;
             ++y;
           }
         }
-        j += 8;
+        jk += 8;
         kx += 8;
         while (kx >= wk) {
           kx -= wk;
@@ -334,75 +378,133 @@ __global__ void __launch_bounds__(kWarps * 32)
       }
     }
 #pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {      // the 4 lanes that share a row
-      cm_lo = fmaxf(cm_lo, __shfl_xor_sync(0xffffffffu, cm_lo, o));
-      cm_hi = fmaxf(cm_hi, __shfl_xor_sync(0xffffffffu, cm_hi, o));
+    for (int x = 1; x < 4; x <<= 1) {      // the 4 lanes that share a row
+      cm_lo = fmaxf(cm_lo, __shfl_xor_sync(0xffffffffu, cm_lo, x));
+      cm_hi = fmaxf(cm_hi, __shfl_xor_sync(0xffffffffu, cm_hi, x));
     }
     // key 0 is valid, so after the first tile both maxima are finite
     const float mn_lo = fmaxf(m_lo, cm_lo);
     const float mn_hi = fmaxf(m_hi, cm_hi);
-    const float a_lo = exp2f(m_lo - mn_lo);
-    const float a_hi = exp2f(m_hi - mn_hi);
+    a_lo = exp2_fast(m_lo - mn_lo);
+    a_hi = exp2_fast(m_hi - mn_hi);
     m_lo = mn_lo;
     m_hi = mn_hi;
-    l_lo *= a_lo;
-    l_hi *= a_hi;
+    float sum_lo = 0.f, sum_hi = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      acc[nt][0] *= a_lo;
-      acc[nt][1] *= a_lo;
-      acc[nt][2] *= a_hi;
-      acc[nt][3] *= a_hi;
+    for (int j = 0; j < kChunk / 8; ++j) {
+      const int half = j / (kGridRow / 8);
+      const float z_lo = m_lo - b_lo[half];
+      const float z_hi = m_hi - b_hi[half];
+      sc[4 * j] = exp2_fast(sc[4 * j] - z_lo);
+      sc[4 * j + 1] = exp2_fast(sc[4 * j + 1] - z_lo);
+      sc[4 * j + 2] = exp2_fast(sc[4 * j + 2] - z_hi);
+      sc[4 * j + 3] = exp2_fast(sc[4 * j + 3] - z_hi);
+      sum_lo += sc[4 * j] + sc[4 * j + 1];
+      sum_hi += sc[4 * j + 2] + sc[4 * j + 3];
     }
-
-    // P.V, 16 keys per step; P rounded to bf16 as on the TPU
+    l_lo = l_lo * a_lo + sum_lo;
+    l_hi = l_hi * a_hi + sum_hi;
+  };
+  // P rounded to bf16 as on the TPU, as the A fragments of k-step kk (keys
+  // 16 kk ..)
+  auto to_bf16 = [&](const float (&sc)[kChunk / 2],
+                     uint32_t (&pa)[kChunk / 16][4]) {
 #pragma unroll
     for (int kk = 0; kk < kChunk / 16; ++kk) {
-      uint32_t pa[4];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float p0 = exp2f(sc[2 * kk + h][0] - m_lo);
-        const float p1 = exp2f(sc[2 * kk + h][1] - m_lo);
-        const float p2 = exp2f(sc[2 * kk + h][2] - m_hi);
-        const float p3 = exp2f(sc[2 * kk + h][3] - m_hi);
-        l_lo += p0 + p1;
-        l_hi += p2 + p3;
-        pa[2 * h] = pack_bf16(p0, p1);
-        pa[2 * h + 1] = pack_bf16(p2, p3);
-      }
-      // V fragments of 16 keys x 16 columns per ldmatrix.x4.trans: lane i
-      // points at row i % 8 of matrix i / 8 (keys +8 for odd matrices,
-      // columns +8 for the upper two), and receives (keys 2t, 2t+1;
-      // column g) of each, the B layout
-      const int v_key = kk * 16 + (lane / 8 % 2) * 8 + lane % 8;
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(
-            b, smem_u32(vt + v_key * kv_stride(D) + np * 16 + lane / 16 * 8));
-        mma_bf16(acc[2 * np], pa, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], pa, b[2], b[3]);
+        const int j = 2 * kk + h;
+        pa[kk][2 * h] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+        pa[kk][2 * h + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
       }
     }
-    __syncthreads();   // the next iteration overwrites this stage
+  };
+  auto rescale = [&](float a_lo, float a_hi) {
+    // once the maxima settle, most tiles leave them unchanged (a = 1)
+    if (__all_sync(0xffffffffu, a_lo == 1.f && a_hi == 1.f)) return;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[4 * j] *= a_lo;
+      o[4 * j + 1] *= a_lo;
+      o[4 * j + 2] *= a_hi;
+      o[4 * j + 3] *= a_hi;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      ot[4 * j] *= a_lo;
+      ot[4 * j + 1] *= a_lo;
+      ot[4 * j + 2] *= a_hi;
+      ot[4 * j + 3] *= a_hi;
+    }
+  };
+
+  // Software pipeline over tiles ci (stage ci % kStages): the softmax of
+  // tile ci runs while the tensor cores compute P.V of tile ci - 1. No
+  // register of an in-flight product is written meanwhile: O is rescaled
+  // before P.V is issued, and P is converted once P.V is done.
+  float sc[kChunk / 2];
+  uint32_t pa[kChunk / 16][4];
+  float a_lo, a_hi;
+#pragma unroll
+  for (int i = 0; i < kChunk / 2; ++i) sc[i] = 0.f;
+  mbar_wait(full, 0);
+  wgmma_fence();
+  issue_qk(sc, 0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  softmax(sc, 0, a_lo, a_hi);
+  to_bf16(sc, pa);
+  for (int ci = 1; ci < n_chunks; ++ci) {
+    const int st = ci % kStages;
+    mbar_wait(full + st, (ci / kStages) & 1);
+    wgmma_fence();
+    issue_qk(sc, st);
+    rescale(a_lo, a_hi);
+    wgmma_fence();
+    issue_pv(pa, (ci - 1) % kStages);
+    wgmma_wait<1>();                 // Q.K^T of tile ci is done
+    fence_regs(sc);
+    softmax(sc, ci, a_lo, a_hi);
+    wgmma_wait<0>();                 // P.V of tile ci - 1 is done
+    fence_regs(o);
+    fence_regs(ot);
+    if (lane == 0) mbar_arrive(empty + (ci - 1) % kStages);
+    to_bf16(sc, pa);
   }
+  rescale(a_lo, a_hi);
+  wgmma_fence();
+  issue_pv(pa, (n_chunks - 1) % kStages);
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_regs(ot);
 
 #pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o);
+  for (int x = 1; x < 4; x <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, x);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, x);
   }
   const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
   const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+  T* out_lo = out + ((size_t)head * s + r_lo) * D + 2 * t;
+  T* out_hi = out + ((size_t)head * s + r_hi) * D + 2 * t;
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int c = nt * 8 + 2 * t;
+  for (int j = 0; j < 8; ++j) {
     if (r_lo < s)
-      store_pair(out + base + (size_t)r_lo * D + c, acc[nt][0] * inv_lo,
-                 acc[nt][1] * inv_lo);
+      store_pair(out_lo + 8 * j, o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
     if (r_hi < s)
-      store_pair(out + base + (size_t)r_hi * D + c, acc[nt][2] * inv_hi,
-                 acc[nt][3] * inv_hi);
+      store_pair(out_hi + 8 * j, o[4 * j + 2] * inv_hi,
+                 o[4 * j + 3] * inv_hi);
+  }
+  if (D == 80) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (r_lo < s)
+        store_pair(out_lo + 64 + 8 * j, ot[4 * j] * inv_lo,
+                   ot[4 * j + 1] * inv_lo);
+      if (r_hi < s)
+        store_pair(out_hi + 64 + 8 * j, ot[4 * j + 2] * inv_hi,
+                   ot[4 * j + 3] * inv_hi);
+    }
   }
 }
 
@@ -411,22 +513,23 @@ cudaError_t launch_tiles(const void* q, const void* k, const void* v,
                          const void* bias_h, const void* bias_w, void* out,
                          int bh, int s, int hk, int wk, float scale,
                          size_t smem, cudaStream_t stream) {
-  // raised once per instance and size, not per launch (one card per process)
-  static size_t smem_allowed = 0;
-  if (smem > smem_allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sam_attention_mma<D, T, kRowTiles>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    smem_allowed = smem;
-  }
+  static size_t allowed = 0;
+  SamMaps maps = {};
+  bool ok = hopper::encode_bf16_map(&maps.q, q, bh, s, D, 64, 64) &&
+            hopper::encode_bf16_map(&maps.k, k, bh, s, D, 64, 64) &&
+            hopper::encode_bf16_map(&maps.v, v, bh, s, D, 64, 64);
+  if (D == 80)
+    ok = ok && hopper::encode_bf16_map(&maps.q_tail, q, bh, s, D, 64, 16) &&
+         hopper::encode_bf16_map(&maps.k_tail, k, bh, s, D, 64, 16) &&
+         hopper::encode_bf16_map(&maps.v_tail, v, bh, s, D, 64, 16);
+  if (!ok) return cudaErrorNotSupported;
+  const cudaError_t err = hopper::allow_smem(
+      sam_attention_wgmma<D, T, kRowTiles>, smem, &allowed);
+  if (err != cudaSuccess) return err;
   const dim3 grid((s + kRows - 1) / kRows, bh);
-  sam_attention_mma<D, T, kRowTiles><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const T*>(bias_h),
-      static_cast<const T*>(bias_w), static_cast<T*>(out), s, hk, wk,
-      scale * kLog2e);
+  sam_attention_wgmma<D, T, kRowTiles><<<grid, kThreads, smem, stream>>>(
+      maps, static_cast<const T*>(bias_h), static_cast<const T*>(bias_w),
+      static_cast<T*>(out), s, hk, wk, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -435,7 +538,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* bias_h, const void* bias_w, void* out, int bh,
                    int s, int hk, int wk, float scale, size_t smem,
                    cudaStream_t stream) {
-  return wk == kChunk
+  return wk == kGridRow
              ? launch_tiles<D, T, true>(q, k, v, bias_h, bias_w, out, bh, s,
                                         hk, wk, scale, smem, stream)
              : launch_tiles<D, T, false>(q, k, v, bias_h, bias_w, out, bh, s,
@@ -449,21 +552,20 @@ extern "C" {
 // Bytes of dynamic shared memory one block needs; the wrapper checks it
 // against the card's limit before launching.
 size_t sam_attention_smem_bytes(int d, int hk, int wk) {
-  return (size_t)kRows * (bias_stride(hk) + bias_w_stride(wk)) * sizeof(float) +
-         (size_t)4 * kChunk * kv_stride(d) * sizeof(__nv_bfloat16);
+  return smem_bytes(d, hk, wk);
 }
 
-// q, k, v: contiguous (bh, s, d) bf16; bias_h (bh, s, hk), bias_w (bh, s, wk)
-// and out (bh, s, d): contiguous, bf16 (is_fp32 = 0) or fp32 (is_fp32 = 1);
-// s = hk * wk, d in {64, 80}. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// q, k, v: contiguous (bh, s, d) bf16, 16-byte aligned (TMA); bias_h
+// (bh, s, hk), bias_w (bh, s, wk) and out (bh, s, d): contiguous, bf16
+// (is_fp32 = 0) or fp32 (is_fp32 = 1); s = hk * wk, d in {64, 80}. Launches
+// on `stream` and returns cudaGetLastError() (0 on success).
 int sam_attention_launch(const void* q, const void* k, const void* v,
                          const void* bias_h, const void* bias_w, void* out,
                          int bh, int s, int d, int hk, int wk, float scale,
                          int is_fp32, void* stream) {
   if (hk * wk != s || (d != 64 && d != 80))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sam_attention_smem_bytes(d, hk, wk);
+  const size_t smem = smem_bytes(d, hk, wk);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (d == 64)

@@ -15,33 +15,47 @@
 // S = 257, D = 64, bf16) on an H100 SXM: reading q, k, v and writing out is
 // 4 * 16 * 12 * 257 * 64 * 2 B = 25.3 MB, 7.5 us at 3.35 TB/s; the two
 // products are 4 * B * H * S^2 * D = 3.2 GFLOP, 3.3 us at 989 TFLOP/s bf16.
-// So the kernel is bound by memory at ~7.5 us. The design moves no byte it
-// need not: each block keeps its (batch, head)'s K and V in shared memory and
-// the (S, S) scores never reach device memory.
+// So the kernel is bound by bytes. The design reads each head's K and V from
+// device memory once and keeps every score on chip.
 //
-// Two kernels, one block per (tile of 64 query rows, batch * head), four
-// warps:
-//
-// * vit_attention_mma (bf16, D = 64): each warp owns 16 query rows. Q.K^T and
-//   P.V run on the tensor cores as mma.sync m16n8k16 (bf16 in, fp32
-//   accumulate), with an online softmax over 64-key chunks, so scores, P and
-//   the output accumulator stay in registers. P is split into a bf16 high
-//   part and a bf16 remainder, two products, so P.V keeps ~16 bits of P as
-//   the fp32 reference does. K and V are copied in with cp.async (every copy
-//   in flight at once) and sit in shared memory with 16 bytes of padding per
-//   row, which puts the 8 rows one fragment load touches on 8 distinct bank
-//   groups.
+// * vit_attention_wgmma (bf16, D = 64): one block per (batch, head) and two
+//   blocks per SM: two consumer warpgroups and one producer warp. The
+//   producer warp issues TMA loads of the head's whole K and V in 64-key
+//   chunks, each completing on its own mbarrier (a head fits in shared
+//   memory, so no chunk is reused and the ring never wraps). Each consumer
+//   warpgroup takes every other 64-row query tile, loads it by TMA (the next
+//   tile's load starts as soon as the last Q.K^T of the current one is
+//   done), and per chunk runs Q.K^T as wgmma m64n64k16 from shared memory,
+//   an online softmax in fp32 registers, and P.V as wgmma with V read
+//   MN-major from shared memory. P goes from the fp32 accumulator into
+//   wgmma's register A fragments as a bf16 high part (its top 16 bits) and
+//   the bf16-rounded remainder, two products of P.V, so P keeps ~16 bits as
+//   the fp32 reference does. A last chunk of at most 16 keys (S = 257: one)
+//   takes an m64n16k16 step; a remainder of at most 8 query rows (S = 257:
+//   one) goes to the producer warp, in fp32 on the CUDA cores, instead of a
+//   64-row tile of its own, which evens the two warpgroups' work. Operand
+//   rows are 128 B under the 128-byte swizzle, which TMA writes and wgmma
+//   reads without bank conflicts; TMA zero-fills rows past S (a 3-D map per
+//   operand: column, row, head); keys at or past valid_len are masked to
+//   -inf. The output is written in bf16 from registers.
+//   On the card the kernel runs at about SDPA's speed, ~3.5x its bound:
+//   192 heads on 132 SMs leave 60 SMs with two, where each tile's steps
+//   run one after another, and no one resource is saturated: the tensor
+//   cores (the P split's second product costs ~12 %), the softmax's
+//   instructions and the bytes each take about a third of the time
+//   (PERF.md, Findings).
 // * vit_attention_simt (fp32, any even D): each warp takes every
 //   fourth row; lanes split the keys for the scores (kept in shared memory)
 //   and the columns for P.V, on the CUDA cores. K and V rows carry one word
 //   of padding, so 32 lanes reading 32 key rows at one column hit 32 banks.
-//
-// wgmma and TMA are left for later work.
+//   It serves fp32 callers and is not on the main path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_attention.cuh"
 
 namespace {
 
@@ -125,223 +139,319 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-constexpr int kMmaD = 64;        // head size of the tensor-core kernel
-constexpr int kChunk = 64;       // keys per online-softmax step
-constexpr int kMmaStride = kMmaD + 8;   // bf16 per shared K/V row (16 B pad)
+constexpr int kD = 64;          // head size of the tensor-core kernel
+constexpr int kTile = 64;       // query rows per tile, keys per TMA chunk
+constexpr int kWarpRows = 8;    // a remainder of <= 8 rows: producer warp
+constexpr int kShortChunk = 16; // a last chunk of <= 16 keys: an n16 step
+constexpr int kConsumers = 2;   // consumer warpgroups per block
+constexpr int kTcThreads = kConsumers * 128 + 32;   // + the producer warp
+constexpr int kTileBytes = hopper::kSw128TileBytes;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+struct VitMaps {
+  CUtensorMap q, k, v;
+};
+
+size_t tc_smem_bytes(int valid_len) {
+  const size_t chunks = (valid_len + kTile - 1) / kTile;
+  return 1024 + (2 * chunks + kConsumers) * kTileBytes +
+         (chunks + kConsumers) * sizeof(uint64_t) +
+         (kD + chunks * kTile) * sizeof(float);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Element (row, col) of a 64-row tile under the 128-byte swizzle.
+__device__ __forceinline__ const __nv_bfloat16* sw128_at(
+    const unsigned char* tile, int row, int col) {
+  return reinterpret_cast<const __nv_bfloat16*>(
+      tile + row * 128 + (((col / 8) ^ (row % 8)) * 16) + (col % 8) * 2);
 }
 
-// d += a (16x16, row) * b (16x8, col), bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// One step of one query tile over keys key0 .. key0 + N - 1 (N = 64, or 16
+// for a last chunk of at most 16 keys): S = Q.K^T, the online softmax
+// update (keys at or past valid_len masked), and O += P.V with P as a bf16
+// high part (its top 16 bits) and a bf16 remainder. after_qk() runs once S
+// has arrived.
+template <int N, typename AfterQk>
+__device__ __forceinline__ void vit_step(float (&o)[32], float& m_lo,
+                                         float& m_hi, float& l_lo,
+                                         float& l_hi, uint32_t q_addr,
+                                         uint32_t k_addr, uint32_t v_addr,
+                                         int key0, int valid_len,
+                                         float scale_log2, int t,
+                                         AfterQk after_qk) {
+  using namespace hopper;
+  float sc[N / 2];   // written whole by the first k-step (scale_d = 0)
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kD / 16; ++ks)
+    wgmma_ss<N>(sc, desc_k_sw128(q_addr, ks), desc_k_sw128(k_addr, ks), ks);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  after_qk();
 
-// Fragment layout (PTX m16n8k16): lane = 4 * g + t. A regs: (row g, cols
-// 2t..2t+1), (row g+8, same), (row g, cols 2t+8..), (row g+8, cols 2t+8..).
-// B regs: (rows 2t..2t+1, col g), (rows 2t+8.., col g). C: c0,c1 at (row g,
-// cols 2t, 2t+1), c2,c3 at (row g+8, same cols).
-__global__ void __launch_bounds__(kWarps * 32)
-    vit_attention_mma(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ out, int s, int valid_len,
-                      float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n_keys = (valid_len + kChunk - 1) / kChunk * kChunk;
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* v_s = k_s + (size_t)n_keys * kMmaStride;
-
-  const size_t base = (size_t)blockIdx.y * s * kMmaD;
-  constexpr int kVecs = kMmaD / 8;        // 16-byte vectors per row
-  // every copy in flight at once (cp.async); rows past valid_len are
-  // zero-filled (source size 0), so the padded keys hold no stale data
-  for (int i = threadIdx.x; i < n_keys * kVecs; i += blockDim.x) {
-    const int r = i / kVecs;
-    const int c = i - r * kVecs;
-    const int bytes = r < valid_len ? 16 : 0;
-    const size_t src = base + (size_t)(r < valid_len ? r : 0) * kMmaD + c * 8;
-    const uint32_t k_dst = static_cast<uint32_t>(
-        __cvta_generic_to_shared(k_s + r * kMmaStride + c * 8));
-    const uint32_t v_dst = static_cast<uint32_t>(
-        __cvta_generic_to_shared(v_s + r * kMmaStride + c * 8));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(k_dst), "l"(k + src), "r"(bytes));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(v_dst), "l"(v + src), "r"(bytes));
+  if (key0 + N > valid_len) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (key0 + 8 * j + 2 * t + e >= valid_len) {
+          sc[4 * j + e] = -INFINITY;
+          sc[4 * j + 2 + e] = -INFINITY;
+        }
+      }
+    }
   }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
+  float cm_lo = -INFINITY, cm_hi = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    cm_lo = fmaxf(cm_lo, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    cm_hi = fmaxf(cm_hi, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {     // the 4 lanes that share a row
+    cm_lo = fmaxf(cm_lo, __shfl_xor_sync(0xffffffffu, cm_lo, x));
+    cm_hi = fmaxf(cm_hi, __shfl_xor_sync(0xffffffffu, cm_hi, x));
+  }
+  // key 0 is valid, so after the first chunk both maxima are finite
+  const float mn_lo = fmaxf(m_lo, cm_lo * scale_log2);   // log2 units
+  const float mn_hi = fmaxf(m_hi, cm_hi * scale_log2);
+  const float a_lo = exp2_fast(m_lo - mn_lo);
+  const float a_hi = exp2_fast(m_hi - mn_hi);
+  m_lo = mn_lo;
+  m_hi = mn_hi;
+  l_lo *= a_lo;
+  l_hi *= a_hi;
+  // once the maxima settle, most chunks leave them unchanged (a = 1)
+  if (!__all_sync(0xffffffffu, a_lo == 1.f && a_hi == 1.f)) {
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      o[4 * j] *= a_lo;
+      o[4 * j + 1] *= a_lo;
+      o[4 * j + 2] *= a_hi;
+      o[4 * j + 3] *= a_hi;
+    }
+  }
 
+  // P as A fragments of k-step kk (keys 16 kk ..): the high part is the top
+  // 16 bits of the fp32 value, the remainder (exact in fp32) rounded to bf16
+  uint32_t pa[N / 16][4], pr[N / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = 2 * kk + h;
+      float p[4];
+      p[0] = exp2_fast(fmaf(sc[4 * j], scale_log2, -m_lo));
+      p[1] = exp2_fast(fmaf(sc[4 * j + 1], scale_log2, -m_lo));
+      p[2] = exp2_fast(fmaf(sc[4 * j + 2], scale_log2, -m_hi));
+      p[3] = exp2_fast(fmaf(sc[4 * j + 3], scale_log2, -m_hi));
+      l_lo += p[0] + p[1];
+      l_hi += p[2] + p[3];
+      float r[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        r[e] = p[e] - __uint_as_float(__float_as_uint(p[e]) & 0xffff0000u);
+      pa[kk][2 * h] =
+          __byte_perm(__float_as_uint(p[0]), __float_as_uint(p[1]), 0x7632);
+      pa[kk][2 * h + 1] =
+          __byte_perm(__float_as_uint(p[2]), __float_as_uint(p[3]), 0x7632);
+      pr[kk][2 * h] = pack_bf16(r[0], r[1]);
+      pr[kk][2 * h + 1] = pack_bf16(r[2], r[3]);
+    }
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    wgmma_m64n64k16_rs(o, pa[kk], desc_mn_sw128(v_addr, kk));
+    wgmma_m64n64k16_rs(o, pr[kk], desc_mn_sw128(v_addr, kk));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+}
+
+// The producer warp, once its loads are issued: the last `rows` query rows
+// (a remainder too short for a 64-row tile) in fp32 on the CUDA cores, from
+// the K and V tiles in shared memory. Lanes split the keys for the scores
+// and the columns for P.V.
+__device__ __forceinline__ void vit_rows_simt(
+    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
+    const unsigned char* k_s, const unsigned char* v_s, uint64_t* kv_full,
+    float* q_row, float* p_row, int s, int rows, int valid_len,
+    float scale_log2, int lane) {
+  using namespace hopper;
+  const int n_chunks = (valid_len + kTile - 1) / kTile;
+  for (int c = 0; c < n_chunks; ++c) mbar_wait(kv_full + c, 0);
+  for (int r = s - rows; r < s; ++r) {
+    for (int c = lane; c < kD; c += 32)
+      q_row[c] = __bfloat162float(q[(size_t)r * kD + c]);
+    __syncwarp();
+    float m = -INFINITY;
+    for (int j = lane; j < valid_len; j += 32) {
+      const unsigned char* kt = k_s + (j / kTile) * kTileBytes;
+      const int jr = j % kTile;
+      float acc = 0.f;
+#pragma unroll
+      for (int cg = 0; cg < kD / 8; ++cg) {
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(sw128_at(kt, jr, cg * 8));
+        const __nv_bfloat16* kv = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc = fmaf(q_row[cg * 8 + e], __bfloat162float(kv[e]), acc);
+      }
+      acc *= scale_log2;
+      p_row[j] = acc;
+      m = fmaxf(m, acc);
+    }
+    m = warp_max(m);
+    float l = 0.f;
+    for (int j = lane; j < valid_len; j += 32) {
+      const float p = exp2f(p_row[j] - m);
+      p_row[j] = p;
+      l += p;
+    }
+    l = warp_sum(l);
+    __syncwarp();
+    const int col = 2 * lane;
+    float a0 = 0.f, a1 = 0.f;
+    for (int j = 0; j < valid_len; ++j) {
+      const __nv_bfloat162 v2 = *reinterpret_cast<const __nv_bfloat162*>(
+          sw128_at(v_s + (j / kTile) * kTileBytes, j % kTile, col));
+      a0 = fmaf(p_row[j], __low2float(v2), a0);
+      a1 = fmaf(p_row[j], __high2float(v2), a1);
+    }
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    *reinterpret_cast<uint32_t*>(out + (size_t)r * kD + col) =
+        pack_bf16(a0 * inv, a1 * inv);
+    __syncwarp();
+  }
+}
+
+__global__ void __launch_bounds__(kTcThreads, 2)
+    vit_attention_wgmma(const __grid_constant__ VitMaps maps,
+                        const __nv_bfloat16* __restrict__ q,
+                        __nv_bfloat16* __restrict__ out, int s,
+                        int valid_len, float scale_log2) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const int n_chunks = (valid_len + kTile - 1) / kTile;
+  // the rows past the last full tile go to the producer warp if they are
+  // few, to a tile of their own otherwise
+  const int rem = s % kTile;
+  const int warp_rows = rem <= kWarpRows ? rem : 0;
+  const int n_tiles = (s - warp_rows + kTile - 1) / kTile;
+  unsigned char* k_s = smem;
+  unsigned char* v_s = k_s + n_chunks * kTileBytes;
+  unsigned char* q_s = v_s + n_chunks * kTileBytes;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(q_s + kConsumers * kTileBytes);
+  uint64_t* q_full = kv_full + n_chunks;
+  float* q_row = reinterpret_cast<float*>(q_full + kConsumers);
+  float* p_row = q_row + kD;
+  const int head = blockIdx.x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const size_t head_base = (size_t)head * s * kD;
+
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < n_chunks; ++c) mbar_init(kv_full + c, 1);
+    for (int w = 0; w < kConsumers; ++w) mbar_init(q_full + w, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers * 4) {
+    // producer warp: the head's K and V, chunk by chunk in key order
+    if (lane == 0) {
+      for (int c = 0; c < n_chunks; ++c) {
+        mbar_expect_tx(kv_full + c, 2 * kTileBytes);
+        tma_load(k_s + c * kTileBytes, &maps.k, kv_full + c, 0, c * kTile,
+                 head);
+        tma_load(v_s + c * kTileBytes, &maps.v, kv_full + c, 0, c * kTile,
+                 head);
+      }
+    }
+    if (warp_rows > 0)
+      vit_rows_simt(q + head_base, out + head_base, k_s, v_s, kv_full, q_row,
+                    p_row, s, warp_rows, valid_len, scale_log2, lane);
+    return;
+  }
+
+  // consumer warpgroup wg: query tiles wg, wg + 2, ...
+  const int wg = warp / 4;
+  const int tid = threadIdx.x % 128;
   const int g = lane / 4;
   const int t = lane % 4;
-  const int row0 = blockIdx.x * kRowsPerBlock + warp * 16;
-  if (row0 >= s) return;                  // warp-uniform; no barrier follows
-  const int r_lo = row0 + g;
-  const int r_hi = row0 + g + 8;
+  unsigned char* q_tile = q_s + wg * kTileBytes;
+  const uint32_t q_addr = smem_u32(q_tile);
+  __nv_bfloat16* out_h = out + head_base;
+  auto load_q = [&](int tile) {
+    mbar_expect_tx(q_full + wg, kTileBytes);
+    tma_load(q_tile, &maps.q, q_full + wg, 0, tile * kTile, head);
+  };
+  if (tid == 0 && wg < n_tiles) load_q(wg);
+  uint32_t q_phase = 0;
+  for (int tile = wg; tile < n_tiles; tile += kConsumers) {
+    mbar_wait(q_full + wg, q_phase);
+    q_phase ^= 1;
 
-  uint32_t qa[kMmaD / 16][4];
-  #pragma unroll
-  for (int ks = 0; ks < kMmaD / 16; ++ks) {
-    const int c = ks * 16 + 2 * t;
-    const __nv_bfloat16* q_lo = q + base + (size_t)r_lo * kMmaD + c;
-    const __nv_bfloat16* q_hi = q + base + (size_t)r_hi * kMmaD + c;
-    qa[ks][0] = r_lo < s ? *reinterpret_cast<const uint32_t*>(q_lo) : 0u;
-    qa[ks][1] = r_hi < s ? *reinterpret_cast<const uint32_t*>(q_hi) : 0u;
-    qa[ks][2] = r_lo < s ? *reinterpret_cast<const uint32_t*>(q_lo + 8) : 0u;
-    qa[ks][3] = r_hi < s ? *reinterpret_cast<const uint32_t*>(q_hi + 8) : 0u;
-  }
-
-  float acc[kMmaD / 8][4];
-  #pragma unroll
-  for (int nt = 0; nt < kMmaD / 8; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;   // running max (log2 units)
-  float l_lo = 0.f, l_hi = 0.f;               // this lane's share of the sum
-
-  for (int kc = 0; kc < n_keys; kc += kChunk) {
-    float sc[kChunk / 8][4];
-    #pragma unroll
-    for (int nt = 0; nt < kChunk / 8; ++nt)
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-    // k-steps outer: consecutive mma write different accumulators
-    #pragma unroll
-    for (int ks = 0; ks < kMmaD / 16; ++ks) {
-      #pragma unroll
-      for (int nt = 0; nt < kChunk / 8; ++nt) {
-        const __nv_bfloat16* k_row =
-            k_s + (kc + nt * 8 + g) * kMmaStride + ks * 16 + 2 * t;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(k_row);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(k_row + 8);
-        mma_bf16(sc[nt], qa[ks], b0, b1);
-      }
-    }
-    float cm_lo = -INFINITY, cm_hi = -INFINITY;
-    #pragma unroll
-    for (int nt = 0; nt < kChunk / 8; ++nt) {
-      #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool ok = kc + nt * 8 + 2 * t + j < valid_len;
-        sc[nt][j] = ok ? sc[nt][j] * scale_log2 : -INFINITY;
-        sc[nt][2 + j] = ok ? sc[nt][2 + j] * scale_log2 : -INFINITY;
-        cm_lo = fmaxf(cm_lo, sc[nt][j]);
-        cm_hi = fmaxf(cm_hi, sc[nt][2 + j]);
-      }
-    }
-    #pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {      // the 4 lanes that share a row
-      cm_lo = fmaxf(cm_lo, __shfl_xor_sync(0xffffffffu, cm_lo, o));
-      cm_hi = fmaxf(cm_hi, __shfl_xor_sync(0xffffffffu, cm_hi, o));
-    }
-    // key 0 is valid, so after the first chunk both maxima are finite
-    const float mn_lo = fmaxf(m_lo, cm_lo);
-    const float mn_hi = fmaxf(m_hi, cm_hi);
-    const float a_lo = exp2f(m_lo - mn_lo);
-    const float a_hi = exp2f(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    l_lo *= a_lo;
-    l_hi *= a_hi;
-    #pragma unroll
-    for (int nt = 0; nt < kMmaD / 8; ++nt) {
-      acc[nt][0] *= a_lo;
-      acc[nt][1] *= a_lo;
-      acc[nt][2] *= a_hi;
-      acc[nt][3] *= a_hi;
+    // Key chunks c in order: S = Q.K^T, the online softmax, O += P.V. The
+    // other warpgroup, and the other block on the SM, overlap this one.
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    float m_lo = -INFINITY, m_hi = -INFINITY;   // running max (log2 units)
+    float l_lo = 0.f, l_hi = 0.f;               // this lane's share of the sum
+    for (int c = 0; c * kTile < valid_len; ++c) {
+      const int left = valid_len - c * kTile;
+      mbar_wait(kv_full + c, 0);
+      const uint32_t k_addr = smem_u32(k_s + c * kTileBytes);
+      const uint32_t v_addr = smem_u32(v_s + c * kTileBytes);
+      // after the last chunk's Q.K^T the warpgroup is done with q_tile:
+      // start loading its next tile
+      auto next_q = [&] {
+        if (left > kTile) return;
+        named_sync(1 + wg, 128);
+        if (tid == 0 && tile + kConsumers < n_tiles) load_q(tile + kConsumers);
+      };
+      if (left <= kShortChunk)
+        vit_step<kShortChunk>(o, m_lo, m_hi, l_lo, l_hi, q_addr, k_addr,
+                              v_addr, c * kTile, valid_len, scale_log2, t,
+                              next_q);
+      else
+        vit_step<kTile>(o, m_lo, m_hi, l_lo, l_hi, q_addr, k_addr, v_addr,
+                        c * kTile, valid_len, scale_log2, t, next_q);
     }
 
-    #pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-      float p[2][4];
-      #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        p[h][0] = exp2f(sc[2 * kk + h][0] - m_lo);
-        p[h][1] = exp2f(sc[2 * kk + h][1] - m_lo);
-        p[h][2] = exp2f(sc[2 * kk + h][2] - m_hi);
-        p[h][3] = exp2f(sc[2 * kk + h][3] - m_hi);
-        l_lo += p[h][0] + p[h][1];
-        l_hi += p[h][2] + p[h][3];
-      }
-      uint32_t pa[4], pr[4];              // P as bf16 high part + remainder
-      #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        __nv_bfloat16 hb[4];
-        #pragma unroll
-        for (int e = 0; e < 4; ++e) hb[e] = __float2bfloat16_rn(p[h][e]);
-        pa[2 * h] = pack_bf16(hb[0], hb[1]);
-        pa[2 * h + 1] = pack_bf16(hb[2], hb[3]);
-        pr[2 * h] = pack_bf16(p[h][0] - __bfloat162float(hb[0]),
-                              p[h][1] - __bfloat162float(hb[1]));
-        pr[2 * h + 1] = pack_bf16(p[h][2] - __bfloat162float(hb[2]),
-                                  p[h][3] - __bfloat162float(hb[3]));
-      }
-      // V fragments of 16 keys x 16 columns per ldmatrix.x4.trans: lane i
-      // points at row i % 8 of 8x8 matrix i / 8 (keys +8 for odd matrices,
-      // columns +8 for the upper two), and receives (keys 2t, 2t+1; column
-      // g) of each, the B layout
-      uint32_t vb[kMmaD / 8][2];
-      const int v_key = kc + kk * 16 + (lane / 8 % 2) * 8 + lane % 8;
-      #pragma unroll
-      for (int np = 0; np < kMmaD / 16; ++np) {
-        const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(
-            v_s + v_key * kMmaStride + np * 16 + lane / 16 * 8));
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-            "{%0, %1, %2, %3}, [%4];\n"
-            : "=r"(vb[2 * np][0]), "=r"(vb[2 * np][1]),
-              "=r"(vb[2 * np + 1][0]), "=r"(vb[2 * np + 1][1])
-            : "r"(addr));
-      }
-      #pragma unroll
-      for (int nt = 0; nt < kMmaD / 8; ++nt)
-        mma_bf16(acc[nt], pa, vb[nt][0], vb[nt][1]);
-      #pragma unroll
-      for (int nt = 0; nt < kMmaD / 8; ++nt)
-        mma_bf16(acc[nt], pr, vb[nt][0], vb[nt][1]);
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, x);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, x);
     }
-  }
-
-  #pragma unroll
-  for (int o = 1; o < 4; o <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o);
-  }
-  const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
-  const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
-  #pragma unroll
-  for (int nt = 0; nt < kMmaD / 8; ++nt) {
-    const int c = nt * 8 + 2 * t;
-    if (r_lo < s)
-      *reinterpret_cast<uint32_t*>(out + base + (size_t)r_lo * kMmaD + c) =
-          pack_bf16(acc[nt][0] * inv_lo, acc[nt][1] * inv_lo);
-    if (r_hi < s)
-      *reinterpret_cast<uint32_t*>(out + base + (size_t)r_hi * kMmaD + c) =
-          pack_bf16(acc[nt][2] * inv_hi, acc[nt][3] * inv_hi);
+    const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
+    const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+    const int r_lo = tile * kTile + (tid / 32) * 16 + g;
+    const int r_hi = r_lo + 8;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (r_lo < s)
+        *reinterpret_cast<uint32_t*>(out_h + (size_t)r_lo * kD + col) =
+            pack_bf16(o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
+      if (r_hi < s)
+        *reinterpret_cast<uint32_t*>(out_h + (size_t)r_hi * kD + col) =
+            pack_bf16(o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi);
+    }
   }
 }
 
 cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out,
                         int bh, int s, int d, int valid_len, float scale,
                         size_t smem_bytes, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      vit_attention_simt, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes);
+  static size_t allowed = 0;
+  const cudaError_t err =
+      hopper::allow_smem(vit_attention_simt, smem_bytes, &allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kRowsPerBlock - 1) / kRowsPerBlock, bh);
   vit_attention_simt<<<grid, kWarps * 32, smem_bytes, stream>>>(
@@ -351,22 +461,28 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
-                       int bh, int s, int valid_len, float scale,
-                       size_t smem_bytes, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      vit_attention_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes);
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, int bh, int s, int valid_len, float scale,
+                         size_t smem_bytes, cudaStream_t stream) {
+  static size_t allowed = 0;
+  VitMaps maps;
+  if (!hopper::encode_bf16_map(&maps.q, q, bh, s, kD, kTile, 64) ||
+      !hopper::encode_bf16_map(&maps.k, k, bh, s, kD, kTile, 64) ||
+      !hopper::encode_bf16_map(&maps.v, v, bh, s, kD, kTile, 64))
+    return cudaErrorNotSupported;
+  const cudaError_t err =
+      hopper::allow_smem(vit_attention_wgmma, smem_bytes, &allowed);
   if (err != cudaSuccess) return err;
-  const dim3 grid((s + kRowsPerBlock - 1) / kRowsPerBlock, bh);
-  vit_attention_mma<<<grid, kWarps * 32, smem_bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      s, valid_len, scale * 1.4426950408889634f);
+  vit_attention_wgmma<<<bh, kTcThreads, smem_bytes, stream>>>(
+      maps, static_cast<const __nv_bfloat16*>(q),
+      static_cast<__nv_bfloat16*>(out), s, valid_len,
+      scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-bool use_mma(int d, int elem_bytes) { return elem_bytes == 2 && d == kMmaD; }
+bool use_tensor_cores(int d, int elem_bytes) {
+  return elem_bytes == 2 && d == kD;
+}
 
 }  // namespace
 
@@ -375,10 +491,7 @@ extern "C" {
 // Bytes of dynamic shared memory one block needs; the wrapper checks it
 // against the card's limit before launching.
 size_t vit_attention_smem_bytes(int d, int valid_len, int elem_bytes) {
-  if (use_mma(d, elem_bytes)) {
-    const size_t n_keys = (size_t)(valid_len + kChunk - 1) / kChunk * kChunk;
-    return 2 * n_keys * kMmaStride * sizeof(__nv_bfloat16);
-  }
+  if (use_tensor_cores(d, elem_bytes)) return tc_smem_bytes(valid_len);
   return (2 * (size_t)valid_len * (d + 1) + (size_t)kWarps * (d + valid_len)) *
          sizeof(float);
 }
@@ -394,8 +507,8 @@ int vit_attention_launch(const void* q, const void* k, const void* v,
   const size_t smem = vit_attention_smem_bytes(d, valid_len, elem_bytes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (use_mma(d, elem_bytes))
-    err = launch_mma(q, k, v, out, bh, s, valid_len, scale, smem, st);
+  if (use_tensor_cores(d, elem_bytes))
+    err = launch_wgmma(q, k, v, out, bh, s, valid_len, scale, smem, st);
   else if (is_bf16)
     err = cudaErrorInvalidValue;   // bf16 runs only with d = 64
   else

@@ -9,8 +9,8 @@ so the memory core is decoupled from any model stack. Two weights-free
 implementations live here: `ColorRegionDetector` (colour quantisation +
 connected components, used by the synthetic fixture tests and the chip
 smoke run) and `DepthRegionDetector` (depth discontinuities and normal
-creases). The neural cascade of the JAX package exposes the same interface
-and is not ported yet.
+creases). The GroundingDINO -> SAM cascade exposes the same interface; its
+port lives in `models/cascade.py`.
 """
 
 from __future__ import annotations

@@ -13,6 +13,7 @@ the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,6 +40,11 @@ def _library():
         lib.vit_attention_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(d: int, valid_len: int, elem_bytes: int) -> int:
+    return _library().vit_attention_smem_bytes(d, valid_len, elem_bytes)
 
 
 def vit_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,12 +93,13 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype == torch.bfloat16 and d != 64:
         raise ValueError(f"the kernel takes bf16 only with head size 64 (the "
                          f"ViT embedders'); got {d}")
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("bf16 q, k and v must be 16-byte aligned (TMA)")
     if b * h > 65535:
         raise ValueError(f"the kernel takes at most 65535 batch*heads; "
                          f"got {b * h}")
-    lib = _library()
     is_bf16 = int(q.dtype == torch.bfloat16)
-    smem = lib.vit_attention_smem_bytes(d, valid, 2 if is_bf16 else 4)
+    smem = _smem_bytes(d, valid, 2 if is_bf16 else 4)
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"K and V of one head need {smem} B of shared "
                          f"memory, above the {MAX_SHARED_BYTES} B a block "
@@ -100,7 +107,7 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.vit_attention_launch(
+        err = _library().vit_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b * h, s, d, valid, 1.0 / d ** 0.5, is_bf16, stream)
     if err != 0:

@@ -4,8 +4,9 @@ Each source under `csrc/` exposes a plain `extern "C"` interface, so it
 compiles in seconds without PyTorch's headers. `nvcc` runs in a subprocess
 with its own timeout, at first use, and writes into `_build/` beside the
 package (listed in `.gitignore`). The library's file name carries a hash of
-its source, so an edited source is rebuilt and a stale library is never
-loaded. Nothing here runs at import time.
+its source and of every shared header (`csrc/*.cuh`), so an edited source or
+header is rebuilt and a stale library is never loaded. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -43,8 +44,13 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> str:
     """Where the library built from `csrc/<source>` lives."""
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    h = hashlib.sha256()
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for name in [source, *headers]:
+        h.update(name.encode() + b"\0")
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 
@@ -57,10 +63,11 @@ def build(source: str) -> dict:
     path = library_path(source)
     if os.path.exists(path):
         return {"path": path, "seconds": 0.0, "log": "(already built)"}
+    nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,

@@ -108,6 +108,8 @@ def sam_attention(q, k, v, bias_h, bias_w):
     is_fp32 = int(q.dtype == torch.float32)
     if is_fp32:   # the products take bf16 operands
         q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned (TMA)")
     out = torch.empty(q.shape, dtype=bias_h.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -11,7 +11,14 @@ another order). bf16 |diff| <= 1e-4 + 2^-7 |ref|: the kernel keeps P to about
 16 bits and both sides round an fp32 result to bf16, so they differ by at most
 one bf16 step (2^-8 to 2^-7 of the value) where the fp32 results straddle a
 rounding boundary. With q, k, v ~ N(0, 1) the outputs are about 0.1 in size
-and reach about 1.
+and reach about 1. The bf16 cases cover the TMA + wgmma kernel's edges: one
+64-row tile, a remainder of query rows short enough for the producer warp
+(S = 65, 72) and one that takes a tile (S = 300), a last key chunk of at most
+16 keys (valid_len 1, 65, 70, 130, 200, 257) and a full one (64), and 384
+batch*heads. SAM cases cover both head sizes at SAM's 64x64 grid, the
+general bias path (WK != 64), WK = 64 with an odd HK (the last 128-key tile
+half past the grid) and S not a multiple of 128, and fp32 in and out. Every
+case checks that the launch count moved by one.
 
 SAM attention: |diff| <= 2e-3 + 2^-7 |ref|, the TPU kernel's own figure
 against fp32 attention (P is rounded to bf16 for P.V, as on the TPU) plus one
@@ -38,6 +45,17 @@ FP32_TOL = (1e-5, 0.0)
     ((16, 12, 257, 64), torch.bfloat16, None, BF16_TOL),
     ((16, 12, 257, 64), torch.bfloat16, 200, BF16_TOL),
     ((1, 2, 300, 64), torch.bfloat16, 130, BF16_TOL),
+    # the wgmma kernel's edges: one tile, a one-row remainder (the producer
+    # warp's rows), masks inside the first, a full and a short last key
+    # chunk, and 384 batch*heads
+    ((2, 3, 64, 64), torch.bfloat16, None, BF16_TOL),
+    ((2, 3, 65, 64), torch.bfloat16, None, BF16_TOL),
+    ((1, 2, 257, 64), torch.bfloat16, 1, BF16_TOL),
+    ((1, 2, 257, 64), torch.bfloat16, 64, BF16_TOL),
+    ((1, 2, 257, 64), torch.bfloat16, 65, BF16_TOL),
+    ((1, 2, 257, 64), torch.bfloat16, 257, BF16_TOL),
+    ((1, 2, 72, 64), torch.bfloat16, 70, BF16_TOL),
+    ((32, 12, 257, 64), torch.bfloat16, None, BF16_TOL),
     # fp32: the CUDA-core kernel
     ((2, 3, 70, 32), torch.float32, None, FP32_TOL),
     ((2, 3, 70, 32), torch.float32, 33, FP32_TOL),
@@ -90,6 +108,14 @@ def _sam_inputs(b, h, hk, wk, d, dtype, gen):
     (2, 3, 20, 13, 80, torch.bfloat16),     # tail rows and keys, odd WK
     (1, 2, 16, 16, 64, torch.float32),
     (1, 1, 13, 20, 80, torch.float32),
+    # SAM-B and SAM-H widths at the 64x64 grid; WK = 64 with an odd HK
+    # (S = 1216, not a multiple of 128); fp32 in and out on both paths
+    (1, 12, 64, 64, 64, torch.bfloat16),
+    (1, 16, 64, 64, 80, torch.bfloat16),
+    (1, 2, 19, 64, 80, torch.bfloat16),
+    (2, 2, 19, 64, 64, torch.bfloat16),
+    (1, 2, 19, 64, 80, torch.float32),
+    (1, 2, 48, 48, 64, torch.float32),
 ])
 def test_sam_attention_kernel_matches_plain_version(b, h, hk, wk, d, dtype):
     if not torch.cuda.is_available():

@@ -247,16 +247,48 @@ def case_ransac(rng):
             (np.asarray(jrmse), trmse.numpy(), 1e-5)]
 
 
-def case_voxel(rng, monkeypatch):
+def _voxel_pair(monkeypatch, pts, cols, size):
     # the JAX package's exact numpy path (its compiled helper switched off)
     from instance_based_loc_tpu.ops import native
     monkeypatch.setattr(native, "voxel_downsample_native",
                         lambda *a, **k: None)
+    jp, jc = jvox.voxel_downsample_numpy(pts, cols, size)
+    tp, tc = voxel.voxel_downsample_numpy(pts, cols, size)
+    return [(jp, tp, 0), (jc, tc, 0)]
+
+
+def case_voxel(rng, monkeypatch):
     pts = rng.uniform(-1, 1, size=(3000, 3)).astype(np.float32)
     cols = rng.uniform(size=(3000, 3)).astype(np.float32)
-    jp, jc = jvox.voxel_downsample_numpy(pts, cols, 0.1)
-    tp, tc = voxel.voxel_downsample_numpy(pts, cols, 0.1)
-    return [(jp, tp, 0), (jc, tc, 0)]
+    return _voxel_pair(monkeypatch, pts, cols, 0.1)
+
+
+def case_voxel_negative(rng, monkeypatch):
+    # every coordinate below zero, keys down to -250, and keys of mixed sign
+    pts = rng.uniform(-5, -0.01, size=(4000, 3)).astype(np.float32)
+    mixed = rng.uniform(-0.3, 0.3, size=(2000, 3)).astype(np.float32)
+    cols = rng.uniform(size=(6000, 3)).astype(np.float32)
+    return (_voxel_pair(monkeypatch, pts, cols[:4000], 0.02)
+            + _voxel_pair(monkeypatch, mixed, cols[4000:], 0.05))
+
+
+def case_voxel_large(rng, monkeypatch):
+    # a cascade-sized object: 300 k points, many per voxel, in input order
+    pts = rng.normal(scale=0.4, size=(300_000, 3)).astype(np.float32)
+    cols = rng.uniform(size=(300_000, 3)).astype(np.float32)
+    return _voxel_pair(monkeypatch, pts, cols, 0.02)
+
+
+def case_voxel_huge_extent(rng, monkeypatch):
+    # a span product past int64 (1e12 keys per axis): the row-wise path
+    pts = np.concatenate([rng.uniform(-1e6, 1e6, size=(500, 3)),
+                          rng.uniform(0, 1e-5, size=(500, 3))]
+                         ).astype(np.float32)
+    cols = rng.uniform(size=(1000, 3)).astype(np.float32)
+    keys = np.floor(pts / np.float32(1e-6)).astype(np.int64)
+    span = [int(x) for x in keys.max(0) - keys.min(0) + 1]
+    assert span[0] * span[1] * span[2] > np.iinfo(np.int64).max
+    return _voxel_pair(monkeypatch, pts, cols, 1e-6)
 
 
 def case_dbscan(rng):
@@ -312,7 +344,7 @@ CASES = {name[5:]: fn for name, fn in globals().items()
 def test_geometry_op_matches_jax(name, monkeypatch):
     rng = np.random.default_rng(zlib.crc32(name.encode()))
     fn = CASES[name]
-    args = (rng, monkeypatch) if name == "voxel" else (rng,)
+    args = (rng, monkeypatch) if name.startswith("voxel") else (rng,)
     for i, (ref, out, atol) in enumerate(fn(*args)):
         ref, out = np.asarray(ref), np.asarray(out)
         assert ref.shape == out.shape, (name, i, ref.shape, out.shape)
