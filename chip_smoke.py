@@ -53,6 +53,27 @@ progress line and raise on failure:
               kernels, and in fp32 on the CPU with the plain versions, same
               weights: embedding cosine, mask logits, GroundingDINO logits and
               boxes within the thresholds written below.
+  9. cli      the port's trial CLIs on the card, on datasets that the port's
+              writers write (PNG through the port's codec):
+              (a) synth_localisation_trial with its defaults (6 objects, 8
+                  views at 240x320, focal 300, the last view held out):
+                  every eval view within 0.6 m / 0.3 rad;
+              (b) localisation_trial on a TUM-layout dataset of the bench
+                  scene (9 views at 480x640, focal 525, 16-bit depth /5000)
+                  with the full-width DINOv2-base embedder, the map build
+                  (full-frame radius outliers, device voxel grid), ply
+                  dumps and the memory pkl: 12 ViT kernel launches per crop
+                  batch, finite poses, the pkl and ply files read back, a
+                  non-empty map;
+              (c) localisation_trial with phase 7's random-weight cascade on
+                  phase 7's scene (views 0-2, -e 1, --detect-batch 2) and
+                  the CLI's reclustering: 4 SAM kernel launches per encode,
+                  48 gather launches per GroundingDINO forward, a finite
+                  pose, and the IoU matrix of the reclustering's staged
+                  clouds on the card against the CPU (gates below).
+              Each part logs its wall time and the memory's stage timer;
+              (b) also times the PNG decode of 640x480 frames and the map
+              build's outlier and voxel steps, (c) the IoU matrix.
 
 The last lines are the card's name and power limit, a JSON line describing
 each kernel, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -61,6 +82,7 @@ without the package beside it, it exits non-zero before printing any result.
 Run from the repository root: python3 chip_smoke.py
 """
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -684,7 +706,7 @@ def phase_cascade(workdir, frames, poses):
         f"{decode_ms:.1f} ms, memory build {build_ms:.1f} ms, query "
         f"{query_ms:.1f} ms")
     log(f"cascade phase done in {time.perf_counter() - t0:.1f} s")
-    return sam_launches, msda_launches
+    return sam_launches, msda_launches, cascade
 
 
 def phase_cascade_vs_cpu(workdir, frames):
@@ -792,6 +814,344 @@ def phase_cascade_vs_cpu(workdir, frames):
     log(f"cascade_vs_cpu phase done in {time.perf_counter() - t0:.1f} s")
 
 
+# phase 9 (c): the IoU matrix of the reclustering's staged clouds on the card
+# against the same fp32 function on the CPU (set before the first run on the
+# card): the same agglomerative labels from both matrices, and at most 0.1 %
+# of the pairs more than 1e-3 apart (both sum volume tetrahedra reaching
+# from the world origin in fp32, in their own orders: ~1e-4 on the CPU
+# against JAX; a near-degenerate box fit can move one pair further)
+IOU_DIFF, IOU_DIFF_SHARE_MAX = 1e-3, 1e-3
+
+
+@contextlib.contextmanager
+def recording_memories():
+    """Records (memory, staged IoU clouds) each time an ObjectMemory stages
+    its reclustering clouds: the CLIs build their memories inside `main`."""
+    from instance_based_loc_tpu_torch.memory.object_memory import ObjectMemory
+    seen = []
+    original = ObjectMemory._iou_clouds
+
+    def recording(self):
+        out = original(self)
+        seen.append((self, out))
+        return out
+    ObjectMemory._iou_clouds = recording
+    try:
+        yield seen
+    finally:
+        ObjectMemory._iou_clouds = original
+
+
+@contextlib.contextmanager
+def working_directory(path):
+    """The CLIs write their debug dumps under ./pcds."""
+    import os
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+
+
+def adaptive_png(path, image):
+    """A PNG whose rows each take the filter of smallest sum of |signed
+    bytes|, the heuristic of libpng and PIL's encoder (so Average and Paeth
+    rows appear), to time the port's decoder on such files; the card's
+    machine has no PIL."""
+    import struct
+    import zlib
+    import numpy as np
+    image = np.asarray(image)
+    if image.dtype == np.uint16:
+        data = image.astype(">u2").view(np.uint8).reshape(image.shape[0], -1)
+        colour, depth, bpp = 0, 16, 2
+    else:
+        data = image.reshape(image.shape[0], -1)
+        colour, depth, bpp = 2, 8, 3
+    rows, prev = [], np.zeros(data.shape[1], np.int32)
+    for row in data.astype(np.int32):
+        a = np.concatenate([np.zeros(bpp, np.int32), row[:-bpp]])
+        c = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+        pa, pb, pc = np.abs(prev - c), np.abs(a - c), np.abs(a + prev - 2 * c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, prev, c))
+        cands = [(row - p) & 0xFF for p in
+                 (0, a, prev, (a + prev) // 2, paeth)]
+        cost = [np.abs(x.astype(np.int8).astype(np.int32)).sum()
+                for x in cands]
+        best = int(np.argmin(cost))
+        rows.append(bytes([best]) + cands[best].astype(np.uint8).tobytes())
+        prev = row
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", image.shape[1],
+                                             image.shape[0], depth, colour,
+                                             0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(b"".join(rows)))
+                + chunk(b"IEND", b""))
+    return np.bincount([r[0] for r in rows], minlength=5).tolist()
+
+
+def log_memory(tag, memory):
+    n_pts = sum(o.num_points() for o in memory.memory)
+    log(f"{tag}: memory of {len(memory.memory)} objects, {n_pts} points; "
+        f"stage timer:")
+    for line in memory.timer.report().splitlines():
+        log(f"{tag}:   {line}")
+
+
+def phase_cli_synth(workdir):
+    """(a) synth_localisation_trial with its defaults."""
+    from instance_based_loc_tpu_torch.cli import synth_localisation_trial
+    t0 = time.perf_counter()
+    with recording_memories() as seen, working_directory(workdir):
+        trans, rot = synth_localisation_trial.main([
+            "--out-dir", f"{workdir}/a_out", "--data-path", f"{workdir}/a"])
+    log_memory("cli (a) synth", seen[-1][0])
+    log(f"cli (a) synth: eval views translation errors {trans}, rotation "
+        f"errors {rot}; {time.perf_counter() - t0:.1f} s")
+    check(len(trans) >= 1 and all(
+        te < SUCCESS_TRANS_M and re_ < SUCCESS_ROT_RAD
+        for te, re_ in zip(trans, rot)),
+        f"cli (a): an eval view misses the success thresholds: {trans}, "
+        f"{rot}")
+
+
+def phase_cli_tum(workdir):
+    """(b) localisation_trial on the bench scene in the TUM layout, with
+    full-width DINOv2-base, the map build, ply dumps and the pkl."""
+    import os
+    import numpy as np
+    import torch
+    from instance_based_loc_tpu_torch.cli import localisation_trial as lt
+    from instance_based_loc_tpu_torch.data import loader
+    from instance_based_loc_tpu_torch.data.synthetic import (
+        default_scene, ring_poses, write_tum_dataset)
+    from instance_based_loc_tpu_torch.memory import (ColorRegionDetector,
+                                                     ObjectMemory)
+    from instance_based_loc_tpu_torch.ops import attention
+    from instance_based_loc_tpu_torch.ops.backprojection import backproject
+    from instance_based_loc_tpu_torch.ops.outliers import (
+        DEFAULT_OUTLIER_REMOVAL_CONFIG as OUT, radius_outlier_keep_mask)
+    from instance_based_loc_tpu_torch.ops.transforms import (
+        transform_points_kinect)
+    from instance_based_loc_tpu_torch.ops.voxel import voxel_downsample
+    from instance_based_loc_tpu_torch.utils.ply import read_ply
+    from instance_based_loc_tpu_torch.utils.png import read_png
+    t0 = time.perf_counter()
+    data = f"{workdir}/tum"
+    scene = default_scene(num_objects=9, seed=3)
+    write_tum_dataset(data, scene, height=480, width=640, focal_length=525.0,
+                      poses=ring_poses(9, radius=4.5, height=1.3,
+                                       target=(0, 0.4, 0)))
+    log(f"cli (b) tum: dataset written in {time.perf_counter() - t0:.1f} s")
+
+    # the PNG decoder on the written frames (every row Sub-filtered) and on
+    # frames whose rows take PIL's kind of adaptive filters
+    rgb_path = f"{data}/rgb/frame_0000.png"
+    depth_path = f"{data}/depth/frame_0000.png"
+    for name, path in (("rgb", rgb_path), ("16-bit depth", depth_path)):
+        image = read_png(path)
+        t1 = time.perf_counter()
+        for _ in range(5):
+            read_png(path)
+        own_ms = (time.perf_counter() - t1) / 5 * 1e3
+        mixed = f"{workdir}/adaptive.png"
+        filters = adaptive_png(mixed, image)
+        check(np.array_equal(read_png(mixed), image),
+              f"cli (b): adaptive-filter {name} PNG decodes wrongly")
+        t1 = time.perf_counter()
+        for _ in range(3):
+            read_png(mixed)
+        mixed_ms = (time.perf_counter() - t1) / 3 * 1e3
+        log(f"cli (b) png decode 640x480 {name}: {own_ms:.1f} ms (rows "
+            f"Sub-filtered, the port's writer), {mixed_ms:.1f} ms (adaptive "
+            f"filters, rows None/Sub/Up/Average/Paeth = {filters})")
+
+    # the map build's steps on one full frame, timed with the card synced
+    rgb = loader.load_rgb(rgb_path)
+    depth = torch.as_tensor(loader.load_depth(depth_path) / 5000.0,
+                            device="cuda")
+    pts, valid = backproject(depth, 525.0, 525.0)
+    pose = torch.as_tensor(ring_poses(9, radius=4.5, height=1.3,
+                                      target=(0, 0.4, 0))[0], device="cuda")
+    p = transform_points_kinect(pts, pose)[valid]
+    cols = (torch.as_tensor(rgb, device="cuda").float() / 255).reshape(
+        -1, 3)[valid]
+    ones = torch.ones(len(p), dtype=torch.bool, device="cuda")
+    out_ms = sync_ms(lambda: radius_outlier_keep_mask(
+        p, ones, OUT["radius"], OUT["radius_nb_points"]))
+    vox_ms = sync_ms(lambda: voxel_downsample(p, cols, ones, 0.025))
+    log(f"cli (b) map build steps on one 640x480 frame ({len(p)} points): "
+        f"radius outliers {out_ms:.1f} ms, voxel grid (0.025) "
+        f"{vox_ms:.1f} ms")
+    # the voxel grid sums each voxel in sorted order: the same bits on
+    # every run, and the CPU's values
+    vox = voxel_downsample(p, cols, ones, 0.025)
+    check(all(torch.equal(a, b) for a, b in
+              zip(vox, voxel_downsample(p, cols, ones, 0.025))),
+          "cli (b): the device voxel grid differs between two runs")
+    vox_cpu = voxel_downsample(p.cpu(), cols.cpu(), ones.cpu(), 0.025)
+    check(torch.equal(vox[2].cpu(), vox_cpu[2]),
+          "cli (b): the device voxel grid's mask differs from the CPU's")
+    vox_err = max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(vox[:2], vox_cpu[:2]))
+    log(f"cli (b) voxel grid: card against CPU max |diff| {vox_err:.3g} "
+        f"(held to 1e-5), bit-identical "
+        f"{all(torch.equal(a.cpu(), b) for a, b in zip(vox, vox_cpu))}")
+    check(vox_err <= 1e-5,
+          f"cli (b): the device voxel grid is {vox_err} off the CPU's")
+
+    scene_flags = ["--convention", "tum", "--data-path", data,
+                   "--embeddings", "dino", "--detector", "color",
+                   "-e", "6", "7", "8", "--consider-floor",
+                   "--min-points", "200", "--no-outlier-removal",
+                   "--focal-length", "525", "--sampling-period", "1",
+                   "--downsample-voxel-size", "0.02", "--dbscan-eps", "0.1",
+                   "--dbscan-min-points", "40",
+                   "--fpfh-global-dist-factor", "2.0",
+                   "--fpfh-local-dist-factor", "0.4",
+                   "--build-map", "--map-pcd-cache-path", f"{workdir}/map.npz",
+                   "--save-point-clouds",
+                   "--memory-save-path", f"{workdir}/tum_mem.pkl",
+                   "--out-dir", f"{workdir}/b_out", "--testname", "tum_dino",
+                   "--quiet"]
+    args = lt.apply_convention_defaults(lt.make_parser().parse_args(
+        scene_flags))
+    detector = ColorRegionDetector(min_area=500,
+                                   floor_colors=[scene.floor_color])
+    # the main path: every count from zero just before, read just after
+    attention.launches = 0
+    t1 = time.perf_counter()
+    with recording_memories() as seen, working_directory(workdir):
+        trans, rot = lt.main(args, detector=detector)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = attention.launches
+    memory = seen[-1][0]
+    batches = memory.get_embeddings_func.batches
+    log_memory("cli (b) tum", memory)
+    log(f"cli (b) tum: CLI run {run_s:.1f} s; views 6-8 translation errors "
+        f"{np.round(trans, 4).tolist()}, rotation errors "
+        f"{np.round(rot, 4).tolist()} (random weights: not gated); "
+        f"vit_attention launches {launches} over {batches} crop batches")
+    check(batches > 0 and launches == 12 * batches,
+          f"cli (b): {launches} ViT kernel launches for {batches} batches")
+    check(len(trans) == 3 and bool(np.all(np.isfinite(trans + rot))),
+          f"cli (b): poses not finite: {trans}, {rot}")
+    check(os.path.exists(f"{workdir}/b_out/tum_dino_results.txt"),
+          "cli (b): no results file")
+    fresh = ObjectMemory(detector=detector, camera_focal_lenth_x=525.0,
+                         camera_focal_lenth_y=525.0,
+                         get_embeddings_func=memory.get_embeddings_func,
+                         log_enabled=False, device="cuda")
+    fresh.load(f"{workdir}/tum_mem.pkl")
+    check(len(fresh.memory) == len(memory.memory) > 0 and all(
+        np.array_equal(a.pts, b.pts) and np.array_equal(a.cols, b.cols)
+        for a, b in zip(fresh.memory, memory.memory)),
+        "cli (b): the memory pkl does not load back equal")
+    dumps = 0
+    for root, _, names in os.walk(f"{workdir}/pcds/tum_dino"):
+        for name in names:
+            ply_pts, _ = read_ply(os.path.join(root, name))
+            check(len(ply_pts) > 0 and bool(np.isfinite(ply_pts).all()),
+                  f"cli (b): bad ply dump {name}")
+            dumps += 1
+    check(dumps >= 2, f"cli (b): {dumps} ply dumps")
+    map_pts = np.load(f"{workdir}/map.npz")["points"]
+    log(f"cli (b) tum: {dumps} ply dumps read back; map of {len(map_pts)} "
+        f"points; part done in {time.perf_counter() - t0:.1f} s")
+    check(len(map_pts) > 1000, f"cli (b): map of {len(map_pts)} points")
+    return launches
+
+
+def phase_cli_cascade(workdir, cascade):
+    """(c) localisation_trial with phase 7's cascade, chunked detection and
+    the CLI's reclustering; the IoU matrix on the card against the CPU."""
+    import numpy as np
+    import torch
+    from instance_based_loc_tpu_torch.cli import localisation_trial as lt
+    from instance_based_loc_tpu_torch.data.synthetic import (
+        default_scene, ring_poses, write_synth_dataset)
+    from instance_based_loc_tpu_torch.ops import msda_gather, sam_attention
+    from instance_based_loc_tpu_torch.ops.clustering import (
+        agglomerative_precomputed)
+    from instance_based_loc_tpu_torch.ops.iou3d import pairwise_obb_iou
+    t0 = time.perf_counter()
+    data = f"{workdir}/neural"
+    write_synth_dataset(data, default_scene(num_objects=4, seed=5),
+                        height=H_E2E, width=W_E2E, focal_length=FOCAL_E2E,
+                        poses=ring_poses(4, radius=4.5, height=1.3,
+                                         target=(0, 0.4, 0))[:3])
+    args = lt.apply_convention_defaults(lt.make_parser().parse_args([
+        "--convention", "synth", "--data-path", data,
+        "--embeddings", "color", "--detector", "cascade",
+        "-e", "1", "--consider-floor", "--detect-batch", "2",
+        "--focal-length", str(FOCAL_E2E), "--min-points", "50",
+        "--no-outlier-removal", "--downsample-voxel-size", "0.02",
+        "--dbscan-eps", "0.1", "--dbscan-min-points", "40",
+        "--out-dir", f"{workdir}/c_out", "--testname", "cascade",
+        "--quiet"]))
+    seg, gd = cascade.segmenter, cascade.grounder
+    # the main path: every count from zero just before, read just after
+    sam_attention.launches = msda_gather.launches = 0
+    seg.encodes = gd.forwards = 0
+    t1 = time.perf_counter()
+    with recording_memories() as seen, working_directory(workdir):
+        trans, rot = lt.main(args, detector=cascade)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    sam_launches, msda_launches = sam_attention.launches, msda_gather.launches
+    encodes, forwards = seg.encodes, gd.forwards
+    memory, (pts, msk) = seen[-1]
+    log_memory("cli (c) cascade", memory)
+    log(f"cli (c) cascade: CLI run {run_s:.1f} s; view 1 translation error "
+        f"{trans}, rotation error {rot} (random weights: not gated); "
+        f"sam_attention launches {sam_launches} over {encodes} encodes, "
+        f"msda_gather launches {msda_launches} over {forwards} forwards")
+    check(encodes > 0 and sam_launches == 4 * encodes,
+          f"cli (c): {sam_launches} SAM kernel launches for {encodes} "
+          f"encodes")
+    check(forwards > 0 and msda_launches == 48 * forwards,
+          f"cli (c): {msda_launches} gather launches for {forwards} forwards")
+    check(bool(np.all(np.isfinite(trans + rot))),
+          f"cli (c): pose not finite: {trans}, {rot}")
+
+    k = len(pts)
+
+    def on_card():
+        return pairwise_obb_iou(torch.as_tensor(pts, device="cuda"),
+                                torch.as_tensor(msk, device="cuda"))
+    iou_ms = sync_ms(on_card, reps=1)
+    card = on_card().cpu().numpy()
+    t1 = time.perf_counter()
+    cpu = pairwise_obb_iou(torch.as_tensor(pts), torch.as_tensor(msk)).numpy()
+    cpu_s = time.perf_counter() - t1
+    diff = np.abs(card - cpu)
+    share = float((diff > IOU_DIFF).mean())
+
+    def labels(iou):
+        dist = 1.0 - iou
+        np.fill_diagonal(dist, 0.0)
+        return agglomerative_precomputed(dist, 1.0 - args.iou_threshold)
+    same = bool(np.array_equal(labels(card), labels(cpu)))
+    log(f"cli (c) cascade: IoU matrix over K = {k} objects "
+        f"({int(msk.sum())} staged points, {k * (k - 1) // 2} pairs): card "
+        f"{iou_ms:.1f} ms, CPU {cpu_s * 1e3:.1f} ms; card vs CPU max|diff| "
+        f"{diff.max():.3g}, share of pairs beyond {IOU_DIFF}: {share:.2e} "
+        f"(gate {IOU_DIFF_SHARE_MAX}); identical labels: {same}; part done "
+        f"in {time.perf_counter() - t0:.1f} s")
+    check(k >= 2 and share <= IOU_DIFF_SHARE_MAX and same,
+          f"cli (c): the card's IoU matrix disagrees with the CPU's "
+          f"(share {share}, labels equal {same})")
+    return sam_launches, msda_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -813,9 +1173,17 @@ def main() -> int:
     msda = phase_msda_kernel()
     frames, poses = e2e_frames()
     with tempfile.TemporaryDirectory() as workdir:
-        sam["launches"], msda["launches"] = phase_cascade(workdir, frames,
-                                                          poses)
+        sam["launches"], msda["launches"], cascade = phase_cascade(
+            workdir, frames, poses)
         phase_cascade_vs_cpu(workdir, frames)
+    t9 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_cli_synth(workdir)
+        kernel["launches"] += phase_cli_tum(workdir)
+        cli_sam, cli_msda = phase_cli_cascade(workdir, cascade)
+    sam["launches"] += cli_sam
+    msda["launches"] += cli_msda
+    log(f"cli phase done in {time.perf_counter() - t9:.1f} s")
     log(f"all phases passed in {time.perf_counter() - T_START:.1f} s")
 
     print(card, flush=True)

@@ -1,20 +1,25 @@
-"""Procedural synthetic RGB-D scenes (copy of the numpy-only parts of
-`instance_based_loc_tpu/data/synthetic.py`): axis-aligned coloured boxes and
-spheres on a floor plane, ray-cast with the exact inverse of the centered-pixel
-backprojection, so `backproject(render(scene)) == scene geometry` by
-construction.
+"""Procedural synthetic RGB-D scenes (counterpart of
+`instance_based_loc_tpu/data/synthetic.py`, whose numpy code is copied):
+axis-aligned coloured boxes and spheres on a floor plane, ray-cast with the
+exact inverse of the centered-pixel backprojection, so
+`backproject(render(scene)) == scene geometry` by construction.
 
 Depth is the camera-frame z coordinate; background pixels get depth 0
-(invalid, dropped by the z != 0 filter downstream). The dataset writers of
-the JAX package (PIL image files) and its ReID-textured scenes are not
-copied.
+(invalid, dropped by the z != 0 filter downstream). The dataset writers
+store the synth and TUM layouts with the port's PNG codec
+(`utils/png.py`): the decoded frames and the pose files equal the JAX
+writers' (which use PIL).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
+
+from ..utils.png import write_png
 
 
 @dataclasses.dataclass
@@ -89,6 +94,36 @@ def _texture_color(idp: dict, u: np.ndarray, v: np.ndarray) -> np.ndarray:
         pat = 0.5 + 0.5 * np.sin(np.hypot(u, v) * idp["freq"] * 2.0)
     return (np.asarray(idp["base"])[None, :] * pat[:, None]
             + np.asarray(idp["second"])[None, :] * (1.0 - pat[:, None]))
+
+
+def _identity_params(rng: np.random.Generator):
+    """Latent appearance and shape code of one ReID identity (copy of
+    `instance_based_loc_tpu/cli/gen_synth_reid.py:_identity_params`; the
+    draws must stay in this order)."""
+    return {
+        "base": rng.uniform(0.15, 0.95, 3),
+        "second": rng.uniform(0.05, 0.95, 3),
+        "freq": rng.uniform(1.5, 9.0),            # pattern spatial frequency
+        "angle": rng.uniform(0, np.pi),           # pattern orientation
+        "kind": rng.integers(0, 3),               # stripes / checker / rings
+        "aspect": rng.uniform(0.45, 0.95),        # silhouette width/height
+        "round": rng.uniform(1.4, 4.0),           # superellipse exponent
+        "depth0": rng.uniform(0.8, 3.5),          # object distance (m)
+        "bulge": rng.uniform(0.1, 0.5),           # depth relief amplitude
+    }
+
+
+def textured_scene(num_objects: int = 9, seed: int = 3,
+                   id_seed: int = 0) -> SyntheticScene:
+    """default_scene geometry with a ReID identity texture on every object:
+    object i wears identity i of the procedural ReID dataset that
+    `gen_synth_reid.generate(seed=id_seed)` writes, so an embedder trained
+    on that dataset has seen these identities."""
+    scene = default_scene(num_objects=num_objects, seed=seed)
+    master = np.random.default_rng(id_seed)
+    for box in scene.boxes:
+        box.texture = _identity_params(master)
+    return scene
 
 
 def look_at_pose(eye: np.ndarray, target: np.ndarray, up=(0.0, 1.0, 0.0)) -> np.ndarray:
@@ -202,3 +237,93 @@ def render_scene(scene: SyntheticScene, pose7: np.ndarray,
     depth = np.where(np.isfinite(best_z), best_z, 0.0).astype(np.float32)
     rgb_u8 = (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
     return rgb_u8, depth, inst
+
+
+def write_synth_dataset(out_dir: str, scene: SyntheticScene | None = None,
+                        n_views: int = 8, height: int = 240, width: int = 320,
+                        focal_length: float = 300.0,
+                        poses: list | None = None) -> SyntheticScene:
+    """Write the reference synthetic dataset layout: rgb/*.png,
+    depth/*.npy, poses.json with euler-degree rotations
+    (synthetic_dataloader.py:47-58). The views are `poses`, by default
+    `ring_poses(n_views)`."""
+    from scipy.spatial.transform import Rotation
+
+    if scene is None:
+        scene = default_scene()
+    os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
+
+    views = []
+    for i, pose in enumerate(ring_poses(n_views) if poses is None else poses):
+        rgb, depth, _ = render_scene(scene, pose, height, width, focal_length)
+        write_png(os.path.join(out_dir, "rgb", f"frame_{i}.png"), rgb)
+        np.save(os.path.join(out_dir, "depth", f"frame_{i}.npy"), depth)
+        euler = Rotation.from_quat(pose[3:]).as_euler("xyz", degrees=True)
+        views.append({
+            "name": "agent",
+            "position": {"x": float(pose[0]), "y": float(pose[1]),
+                         "z": float(pose[2])},
+            "rotation": {"x": float(euler[0]), "y": float(euler[1]),
+                         "z": float(euler[2])},
+        })
+    with open(os.path.join(out_dir, "poses.json"), "w") as f:
+        json.dump({"views": views}, f, indent=2)
+    with open(os.path.join(out_dir, "additional_information.txt"), "w") as f:
+        f.write(f"Focal Lenth = {focal_length:g}\n")
+    return scene
+
+
+def get_sense_of_depthmap_from_pointcloud(points: np.ndarray,
+                                          image_height: int, image_width: int,
+                                          focal_length_x: float,
+                                          focal_length_y: float) -> np.ndarray:
+    """Re-project a camera-frame cloud into a depth-map-shaped image (the
+    reference's "sense of depthmap" debugging view,
+    synthetic_dataloader.py:141-163, y-negation quirk included)."""
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    zs = np.where(np.abs(z) > 1e-12, z, 1e-12)
+    x_pix = np.clip(np.round(x * focal_length_x / zs + image_width / 2
+                             ).astype(int), 0, image_width - 1)
+    y_pix = np.clip(np.round(y * focal_length_y / zs + image_height / 2
+                             ).astype(int), 0, image_height - 1)
+    depth = np.zeros((image_height, image_width), np.float32)
+    depth[-y_pix, x_pix] = z
+    return depth
+
+
+def write_tum_dataset(out_dir: str, scene: SyntheticScene | None = None,
+                      n_views: int = 8, height: int = 240, width: int = 320,
+                      focal_length: float = 300.0,
+                      poses: list | None = None) -> SyntheticScene:
+    """Write the TUM RGB-D layout the tum convention parses: rgb/*.png,
+    depth/*.png (uint16, metres x 5000, tum_dataloader.py:103) and
+    groundtruth.txt rows `tx ty tz qx qy qz qw` (the reference reads
+    vals[0:3] as t and vals[3:7] as the quaternion). The views are `poses`,
+    by default `ring_poses(n_views)`.
+
+    The rows pre-invert the loader's Kinect frame fix (q_file = q_true (x)
+    roty(pi), t_file = -t_true), so the parsed poses equal the render
+    poses and the plain-transform build and localise round-trip exactly."""
+    from scipy.spatial.transform import Rotation
+
+    if scene is None:
+        scene = default_scene()
+    os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
+
+    r2 = Rotation.from_euler("xyz", [0, np.pi, 0]).as_matrix()
+    lines = ["# synthetic TUM-format sequence (tx ty tz qx qy qz qw)"]
+    for i, pose in enumerate(ring_poses(n_views) if poses is None else poses):
+        rgb, depth, _ = render_scene(scene, pose, height, width, focal_length)
+        write_png(os.path.join(out_dir, "rgb", f"frame_{i:04d}.png"), rgb)
+        d16 = np.clip(depth * 5000.0, 0, 65535).astype(np.uint16)
+        write_png(os.path.join(out_dir, "depth", f"frame_{i:04d}.png"), d16)
+        r_true = Rotation.from_quat(pose[3:]).as_matrix()
+        q_file = Rotation.from_matrix(r_true @ r2).as_quat()
+        t_file = -pose[:3]
+        lines.append(" ".join(f"{v:.6f}" for v in
+                              np.concatenate([t_file, q_file])))
+    with open(os.path.join(out_dir, "groundtruth.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return scene

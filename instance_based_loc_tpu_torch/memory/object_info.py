@@ -9,6 +9,9 @@ on the host; ObjectMemory packs the device tensors once per memory version.
 
 from __future__ import annotations
 
+import os
+import pickle
+
 import numpy as np
 
 from ..ops.voxel import voxel_downsample_numpy
@@ -109,6 +112,20 @@ class ObjectInfo:
         self.pts = self.pts[keep]
         self.cols = self.cols[keep]
         self._compute_means()
+
+    def save(self, save_directory: str):
+        """pointcloud.ply and info.pkl (names, embeddings, budget), the JAX
+        package's layout."""
+        from ..utils.ply import write_ply
+        os.makedirs(save_directory, exist_ok=True)
+        write_ply(os.path.join(save_directory, "pointcloud.ply"),
+                  self.pts, self.cols)
+        with open(os.path.join(save_directory, "info.pkl"), "wb") as f:
+            pickle.dump({
+                "names": self.names,
+                "embeddings": self.embeddings,
+                "max_embeddings_num": self.max_embeddings_num,
+            }, f)
 
     def to_tuple(self):
         """Pickle-friendly (meta, points, colors), the JAX package's format."""

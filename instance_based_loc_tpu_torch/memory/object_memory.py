@@ -11,6 +11,7 @@
   statistics. The memory side is packed once per memory version
   (`_pack_memory`);
 * instance bookkeeping (ObjectInfo, clustering, merging) is host numpy;
+  the reclustering IoU matrix (`ops/iou3d.py`) runs on the device;
 * the final pose is composed from the BEST assignment's means (the
   reference composes it from loop-leaked means, a bug the JAX package fixed).
 
@@ -27,10 +28,15 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.clustering import dbscan
+from ..data.loader import load_depth, load_rgb
+from ..ops.clustering import agglomerative_precomputed, dbscan
+from ..ops.iou3d import pairwise_obb_iou
 from ..ops.localise_kernels import localise_frame, make_subsets, process_frame
 from ..ops.outliers import DEFAULT_OUTLIER_REMOVAL_CONFIG
 from ..ops.pointcloud import round_up_pow2
+from ..utils.logging import conditional_log
+from ..utils.ply import write_ply
+from ..utils.profiling import StageTimer
 from .detection import Detections
 from .object_info import ObjectInfo
 from .phrases import check_if_floor
@@ -82,7 +88,11 @@ class ObjectMemory:
                             full_depth_image, consider_floor) -> (M, E)
 
     Images are passed as arrays, or as paths read by `load_rgb_image_func` /
-    `load_depth_image_func`."""
+    `load_depth_image_func` (by default the PNG / .npy readers of
+    `data/loader.py`). `timer` accumulates the JAX package's stage names
+    build.{load,detect,embed,device,bookkeeping} and
+    loc.{load,detect,embed,device,finish}, and build.downsample, recluster
+    (the CLI's strategy) and recluster.iou_matrix."""
 
     def __init__(
         self,
@@ -110,18 +120,18 @@ class ObjectMemory:
         self.mem_formation_bounding_box_threshold = mem_formation_bounding_box_threshold
         self.mem_formation_occlusion_overlap_threshold = mem_formation_occlusion_overlap_threshold
         self.object_info_max_embeddings_num = object_info_max_embeddings_num
-        self.load_rgb_image_func = load_rgb_image_func
-        self.load_depth_image_func = load_depth_image_func
+        self.load_rgb_image_func = load_rgb_image_func or load_rgb
+        self.load_depth_image_func = load_depth_image_func or load_depth
         self.dataset_floor_thickness = dataset_floor_thickness
 
         self.memory: list[ObjectInfo] = []
         self.floors: ObjectInfo | None = None
+        self.timer = StageTimer()
         self._pack = None          # resident device tensors (localise)
         self._frame_counter = 0
 
     def _log(self, statement):
-        if self.log_enabled:
-            print(statement, flush=True)
+        conditional_log(statement, self.log_enabled)
 
     def _invalidate_pack(self):
         self._pack = None
@@ -141,15 +151,10 @@ class ObjectMemory:
     # build
     # ------------------------------------------------------------------ #
     def _load_images(self, rgb_image, depth_image, depth_factor):
-        def load(x, func, what):
-            if isinstance(x, np.ndarray):
-                return x
-            if func is None:
-                raise ValueError(f"{what} is not an array and no "
-                                 f"load_{what}_image_func was given")
-            return func(x)
-        rgb = load(rgb_image, self.load_rgb_image_func, "rgb")
-        depth = load(depth_image, self.load_depth_image_func, "depth")
+        rgb = (rgb_image if isinstance(rgb_image, np.ndarray)
+               else self.load_rgb_image_func(rgb_image))
+        depth = (depth_image if isinstance(depth_image, np.ndarray)
+                 else self.load_depth_image_func(depth_image))
         return rgb, np.asarray(depth, np.float32) / depth_factor
 
     @staticmethod
@@ -178,20 +183,24 @@ class ObjectMemory:
         """Reference process_image (object_memory.py:163-256): detect, embed,
         backproject, (optional noise), world transform, min-points filter,
         floor routing, append. `detections` skips the detect stage."""
-        rgb, depth = self._load_images(rgb_image_path, depth_image_path,
-                                       depth_factor)
-        if detections is not None:
-            det = detections
-        elif getattr(self.detector, "wants_depth", False):
-            det = self.detector.find(rgb, consider_floor, depth=depth)
-        else:
-            det = self.detector.find(rgb, consider_floor)
+        timer = self.timer
+        with timer.stage("build.load"):
+            rgb, depth = self._load_images(rgb_image_path, depth_image_path,
+                                           depth_factor)
+        with timer.stage("build.detect"):
+            if detections is not None:
+                det = detections
+            elif getattr(self.detector, "wants_depth", False):
+                det = self.detector.find(rgb, consider_floor, depth=depth)
+            else:
+                det = self.detector.find(rgb, consider_floor)
         if len(det) == 0:
             self._log("ObjectMemory.process_image did NOT find any objects")
             return
-        embs = np.asarray(self.get_embeddings_func(
-            detections=det, full_rgb_image=rgb, full_depth_image=depth,
-            consider_floor=consider_floor))
+        with timer.stage("build.embed"):
+            embs = np.asarray(self.get_embeddings_func(
+                detections=det, full_rgb_image=rgb, full_depth_image=depth,
+                consider_floor=consider_floor))
         if len(embs) != len(det):
             raise ValueError(f"{len(embs)} embeddings for {len(det)} "
                              f"detections")
@@ -205,38 +214,41 @@ class ObjectMemory:
 
         cfg = outlier_removal_config
         dev = self.device
-        pc6, raw_counts, sub_counts = process_frame(
-            torch.as_tensor(depth, device=dev),
-            torch.as_tensor(np.asarray(rgb), device=dev),
-            torch.as_tensor(self._pad_masks(det.masks), device=dev),
-            torch.as_tensor(pose, dtype=torch.float32, device=dev),
-            float(self.camera_focal_lenth_x), float(self.camera_focal_lenth_y),
-            cfg["radius"] if cfg else 0.05, float(depth_noise),
-            self._generator(),
-            proc_cap=process_capacity, apply_outlier=cfg is not None,
-            nb_points=cfg["radius_nb_points"] if cfg else 0,
-            kinect=kinect_frame, add_noise=add_noise)
-        pc6, raw_counts, sub_counts = (x.cpu().numpy() for x in
-                                       (pc6, raw_counts, sub_counts))
-
-        self._log(f"ObjectMemory.process_image found: {det.phrases}")
-        for i, (phrase, emb) in enumerate(zip(det.phrases, embs)):
-            n_raw = int(raw_counts[i])
-            if n_raw < min_points:
-                self._log(f"\t\tSkipping {phrase}: {n_raw} points "
-                          f"< min_points = {min_points}.")
-                continue
-            n = int(sub_counts[i])
-            new_obj = ObjectInfo(len(self.memory), phrase, emb,
-                                 (pc6[i, :n, :3].copy(), pc6[i, :n, 3:].copy()),
-                                 self.object_info_max_embeddings_num)
-            if check_if_floor(new_obj.names):
-                self.floors = (new_obj if self.floors is None
-                               else self.floors + new_obj)
-                self._log(f"\tFloor Added: {new_obj}")
-            else:
-                self.memory.append(new_obj)
-                self._log(f"\tObject Added: {new_obj}")
+        with timer.stage("build.device"):
+            pc6, raw_counts, sub_counts = process_frame(
+                torch.as_tensor(depth, device=dev),
+                torch.as_tensor(np.asarray(rgb), device=dev),
+                torch.as_tensor(self._pad_masks(det.masks), device=dev),
+                torch.as_tensor(pose, dtype=torch.float32, device=dev),
+                float(self.camera_focal_lenth_x),
+                float(self.camera_focal_lenth_y),
+                cfg["radius"] if cfg else 0.05, float(depth_noise),
+                self._generator(),
+                proc_cap=process_capacity, apply_outlier=cfg is not None,
+                nb_points=cfg["radius_nb_points"] if cfg else 0,
+                kinect=kinect_frame, add_noise=add_noise)
+            pc6, raw_counts, sub_counts = (x.cpu().numpy() for x in
+                                           (pc6, raw_counts, sub_counts))
+        with timer.stage("build.bookkeeping"):
+            self._log(f"ObjectMemory.process_image found: {det.phrases}")
+            for i, (phrase, emb) in enumerate(zip(det.phrases, embs)):
+                n_raw = int(raw_counts[i])
+                if n_raw < min_points:
+                    self._log(f"\t\tSkipping {phrase}: {n_raw} points "
+                              f"< min_points = {min_points}.")
+                    continue
+                n = int(sub_counts[i])
+                new_obj = ObjectInfo(len(self.memory), phrase, emb,
+                                     (pc6[i, :n, :3].copy(),
+                                      pc6[i, :n, 3:].copy()),
+                                     self.object_info_max_embeddings_num)
+                if check_if_floor(new_obj.names):
+                    self.floors = (new_obj if self.floors is None
+                                   else self.floors + new_obj)
+                    self._log(f"\tFloor Added: {new_obj}")
+                else:
+                    self.memory.append(new_obj)
+                    self._log(f"\tObject Added: {new_obj}")
         self._invalidate_pack()
 
     # ------------------------------------------------------------------ #
@@ -244,10 +256,11 @@ class ObjectMemory:
     # ------------------------------------------------------------------ #
     def downsample_all_objects(self, voxel_size: float):
         self._log("Downsampling all objects")
-        for obj in self.memory:
-            obj.downsample(voxel_size)
-        if self.floors is not None:
-            self.floors.downsample(voxel_size)
+        with self.timer.stage("build.downsample"):
+            for obj in self.memory:
+                obj.downsample(voxel_size)
+            if self.floors is not None:
+                self.floors.downsample(voxel_size)
         self._invalidate_pack()
 
     def remove_points_below_floor(self):
@@ -302,9 +315,131 @@ class ObjectMemory:
         self.memory = self._merge_by_labels(self.memory, labels)
         self._invalidate_pack()
 
+    def _embedding_distance_matrix(self) -> np.ndarray:
+        """1 - the min-max normalised cosine similarity of the objects'
+        mean embeddings (reference object_memory.py:444-465)."""
+        embs = np.stack([obj.mean_emb for obj in self.memory]) \
+            .astype(np.float64)
+        embs = embs / np.maximum(np.linalg.norm(embs, axis=1, keepdims=True),
+                                 1e-12)
+        sim = embs @ embs.T
+        sim = sim - sim.min()
+        denom = sim.max()
+        if denom > 0:
+            sim = sim / denom
+        return 1.0 - sim
+
+    def recluster_via_agglomerative_clustering(
+            self, embedding_distance_threshold=0.4, **_ignored):
+        if len(self.memory) < 2:
+            return
+        self._log("Clustering agglomeratively")
+        labels = agglomerative_precomputed(self._embedding_distance_matrix(),
+                                           embedding_distance_threshold,
+                                           linkage="average")
+        self.memory = self._merge_by_labels(self.memory, labels,
+                                            drop_noise=False)
+        self._invalidate_pack()
+
+    def recluster_via_combined(self, embedding_distance_threshold=0.4,
+                               eps=0.4, min_points_per_cluster=150):
+        """Agglomerative clustering on the embeddings, then DBSCAN within
+        each embedding cluster (reference object_memory.py:444-556)."""
+        if len(self.memory) < 2:
+            return
+        self._log("Clustering agglomeratively")
+        labels = agglomerative_precomputed(self._embedding_distance_matrix(),
+                                           embedding_distance_threshold,
+                                           linkage="average")
+        new_memory: list[ObjectInfo] = []
+        for u in np.unique(labels):
+            group = [obj for lab, obj in zip(labels, self.memory) if lab == u]
+            sub_labels = self._dbscan_object_labels(group, eps,
+                                                    min_points_per_cluster)
+            new_memory += self._merge_by_labels(group, sub_labels)
+        self.memory = new_memory
+        for i, obj in enumerate(self.memory):
+            obj.id = i
+        self._invalidate_pack()
+
+    def _iou_clouds(self):
+        """The clouds the IoU pass fits its boxes to: per object at most
+        2048 points, drawn with numpy's default_rng(0) as the JAX package
+        draws them, zero-padded to (K, cap, 3) with a (K, cap) mask."""
+        k = len(self.memory)
+        cap = round_up_pow2(
+            min(max(max(o.num_points() for o in self.memory), 8), 2048))
+        rng = np.random.default_rng(0)
+        pts = np.zeros((k, cap, 3), np.float32)
+        msk = np.zeros((k, cap), bool)
+        for i, obj in enumerate(self.memory):
+            p = obj.points()
+            if len(p) > cap:
+                p = p[rng.choice(len(p), cap, replace=False)]
+            pts[i, :len(p)] = p
+            msk[i, :len(p)] = True
+        return pts, msk
+
+    def _recluster_IoU(self, IoU_threshold=0.6):
+        """Agglomerative (average) clustering on 1 - the pairwise oriented
+        box IoU (reference object_memory.py:710-747); the IoU matrix is
+        computed on the memory's device."""
+        if len(self.memory) < 2:
+            return
+        pts, msk = self._iou_clouds()
+        with self.timer.stage("recluster.iou_matrix"):
+            ious = pairwise_obb_iou(
+                torch.as_tensor(pts, device=self.device),
+                torch.as_tensor(msk, device=self.device)).cpu().numpy()
+        dist = 1.0 - ious
+        np.fill_diagonal(dist, 0.0)
+        labels = agglomerative_precomputed(dist, 1.0 - IoU_threshold,
+                                           linkage="average")
+        self._log("Clustering agglomeratively")
+        self.memory = self._merge_by_labels(self.memory, labels,
+                                            drop_noise=False)
+        for obj in self.memory:
+            obj._compute_means()
+        self._invalidate_pack()
+
+    def recluster_via_clustering_and_IoU(self, embedding_distance_threshold=0.4,
+                                         eps=0.4, min_points_per_cluster=150,
+                                         IoU_threshold=0.25):
+        """The IoU pass, then the combined pass (reference
+        object_memory.py:562-708)."""
+        with self.timer.stage("recluster"):
+            self._recluster_IoU(IoU_threshold)
+            self.recluster_via_combined(embedding_distance_threshold, eps,
+                                        min_points_per_cluster)
+
     # ------------------------------------------------------------------ #
-    # persistence (the JAX package's pkl format)
+    # persistence (the JAX package's ply dumps and pkl format)
     # ------------------------------------------------------------------ #
+    def save(self, save_directory: str):
+        """memory.txt, the combined clouds as ply, and one directory per
+        object (and the floors) holding its ply and info.pkl."""
+        obj_dir = os.path.join(save_directory, "objects")
+        floor_dir = os.path.join(save_directory, "floors")
+        os.makedirs(obj_dir, exist_ok=True)
+        os.makedirs(floor_dir, exist_ok=True)
+        with open(os.path.join(save_directory, "memory.txt"), "w") as f:
+            f.write(repr(self))
+        if self.memory:
+            pts = np.concatenate([o.pts for o in self.memory])
+            cols = np.concatenate([o.cols for o in self.memory])
+            write_ply(os.path.join(save_directory, "combined_pointcloud.ply"),
+                      pts, cols)
+            if self.floors is not None:
+                write_ply(os.path.join(save_directory,
+                                       "combined_pointcloud_with_floor.ply"),
+                          np.concatenate([pts, self.floors.pts]),
+                          np.concatenate([cols, self.floors.cols]))
+        for obj in self.memory:
+            obj.save(os.path.join(obj_dir, str(obj.id)))
+        if self.floors is not None:
+            self.floors.save(os.path.join(floor_dir, "all_floors"))
+        self._log(f"Saved memory to {save_directory}")
+
     def save_to_pkl(self, save_path: str):
         payload = {
             "memory": [obj.to_tuple() for obj in self.memory],
@@ -381,13 +516,31 @@ class ObjectMemory:
     # ------------------------------------------------------------------ #
     # localise (reference object_memory.py:852-1169)
     # ------------------------------------------------------------------ #
-    def localise(self, image_path, depth_image_path, **kwargs):
-        """Returns (pose7 [x,y,z,qx,qy,qz,qw], [assignment, None])."""
+    def localise(self, image_path, depth_image_path, testname: str = "",
+                 subtest_name: str = "", save_point_clouds: bool = False,
+                 save_root: str = "pcds", **kwargs):
+        """Returns (pose7 [x,y,z,qx,qy,qz,qw], [assignment, None]). With
+        `save_point_clouds`, the query's detected evaluation cloud and the
+        memory's are written as ply under save_root/testname/subtest_name,
+        before and after the best assignment's transform."""
         hh = self._localise_host(image_path, depth_image_path, **kwargs)
         if "result" in hh:
             return hh["result"]
-        out = localise_frame(*hh["args"], hh["generator"], **hh["statics"])
-        return self._finish_out(out, hh)
+        keys = ["active", "assn_valid", "pair_valid", "assn_det", "assn_mem",
+                "best", "pose7", "rmse", "fitness", "full_rmse",
+                "full_fitness"]
+        if save_point_clouds:
+            keys += ["eval_det_pts", "eval_det_msk", "transform"]
+        with self.timer.stage("loc.device"):
+            out = localise_frame(*hh["args"], hh["generator"],
+                                 **hh["statics"])
+            out = {key: out[key].cpu().numpy() for key in keys}
+        with self.timer.stage("loc.finish"):
+            result = self._finish_out(out, hh["zero"])
+            if save_point_clouds and result[1][0]:
+                self._save_debug_clouds(out, result[1][0], testname,
+                                        subtest_name, save_root)
+        return result
 
     def _localise_host(self, image_path, depth_image_path,
                        outlier_removal_config=None,
@@ -403,17 +556,21 @@ class ObjectMemory:
         (unlike the reference's localise default); pass
         LOCALISE_OUTLIER_CONFIG for the reference behaviour."""
         consider_floor = False   # the reference hard-disables it (:886)
-        rgb, depth = self._load_images(image_path, depth_image_path,
-                                       depth_factor)
-        det = (self.detector.find(rgb, consider_floor, depth=depth)
-               if getattr(self.detector, "wants_depth", False)
-               else self.detector.find(rgb, consider_floor))
+        timer = self.timer
+        with timer.stage("loc.load"):
+            rgb, depth = self._load_images(image_path, depth_image_path,
+                                           depth_factor)
+        with timer.stage("loc.detect"):
+            det = (self.detector.find(rgb, consider_floor, depth=depth)
+                   if getattr(self.detector, "wants_depth", False)
+                   else self.detector.find(rgb, consider_floor))
         zero = (np.array([0., 0., 0., 0., 0., 0., 1.]), [[], []])
         if len(det) == 0 or len(self.memory) == 0:
             return {"result": zero}
-        detected_embs = np.asarray(self.get_embeddings_func(
-            detections=det, full_rgb_image=rgb, full_depth_image=depth,
-            consider_floor=consider_floor))
+        with timer.stage("loc.embed"):
+            detected_embs = np.asarray(self.get_embeddings_func(
+                detections=det, full_rgb_image=rgb, full_depth_image=depth,
+                consider_floor=consider_floor))
 
         pack = self._pack_memory()
         dev = self.device
@@ -486,13 +643,8 @@ class ObjectMemory:
         return {"args": args, "statics": statics, "zero": zero,
                 "generator": self._generator()}
 
-    def _finish_out(self, out, handle):
-        """One fetch of the query's small outputs, then the host decode."""
-        keys = ("active", "assn_valid", "pair_valid", "assn_det", "assn_mem",
-                "best", "pose7", "rmse", "fitness", "full_rmse",
-                "full_fitness")
-        out = {key: out[key].cpu().numpy() for key in keys}
-        zero = handle["zero"]
+    def _finish_out(self, out, zero):
+        """The host decode of a query's fetched outputs."""
         assn_valid = out["assn_valid"]
         if int(out["active"].sum()) == 0 or not assn_valid.any():
             return zero
@@ -519,3 +671,20 @@ class ObjectMemory:
         best_assn = decode(best)
         self._log(f"Best assn: {best_assn}")
         return np.asarray(out["pose7"], np.float64), [best_assn, None]
+
+    def _save_debug_clouds(self, out, best_assn, testname, subtest_name,
+                           save_root):
+        """Debug ply dumps (reference object_memory.py:946-966,1139-1161)
+        of the evaluation subsample of the detected cloud that the query
+        returns, with the memory's evaluation cloud."""
+        subsave = os.path.join(save_root, testname, str(subtest_name))
+        os.makedirs(subsave, exist_ok=True)
+        pack = self._pack_memory()
+        det_pts = out["eval_det_pts"][out["eval_det_msk"]]
+        mem_pts = pack["eval_pts"].cpu().numpy()[pack["eval_msk"].cpu().numpy()]
+        write_ply(os.path.join(subsave, "_init_pcd.ply"),
+                  np.concatenate([det_pts, mem_pts]))
+        gT = out["transform"][int(out["best"])]
+        moved_det = det_pts @ gT[:3, :3].T + gT[:3, 3]
+        write_ply(os.path.join(subsave, f"_best_full_pcd{best_assn}.ply"),
+                  np.concatenate([mem_pts, moved_det]))

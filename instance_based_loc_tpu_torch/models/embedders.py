@@ -7,8 +7,8 @@ Embedders are factories returning one batched callable:
         -> np.ndarray (M, E)
 
 Keys mirror the reference CLI (`--embeddings {clip,dino,vit}`) plus the
-weights-free test embedders (`dummy`, `color`). The `dator` entry is not
-ported yet.
+weights-free test embedders (`dummy`, `color`). The `dator` entry raises:
+DATOR inference is not ported yet.
 """
 
 from __future__ import annotations
@@ -71,3 +71,9 @@ def _vit_factory(variant):
 
 for _name in ("vit", "dino", "clip"):
     register(_name)(_vit_factory(_name))
+
+
+@register("dator")
+def _dator(**_kwargs):
+    raise NotImplementedError("the dator embedder is not ported yet "
+                              "(ROADMAP.md queue 1, 'DATOR inference')")

@@ -1,10 +1,12 @@
-"""Host-side DBSCAN (counterpart of `instance_based_loc_tpu/ops/clustering.py:
-dbscan`; replaces Open3D's `cluster_dbscan`).
+"""Host-side clustering (counterpart of
+`instance_based_loc_tpu/ops/clustering.py`): DBSCAN, which replaces Open3D's
+`cluster_dbscan`, and agglomerative clustering on a precomputed distance
+matrix.
 
-Same labels as the JAX package's numpy path: neighbours are the pairs with
-sum((p - q)^2) <= eps^2 in float64, a point is core iff it has >=
-min_points neighbours (self included), clusters are the connected
-components of core points, a border point joins the cluster of its
+DBSCAN gives the same labels as the JAX package's numpy path: neighbours
+are the pairs with sum((p - q)^2) <= eps^2 in float64, a point is core
+iff it has >= min_points neighbours (self included), clusters are the
+connected components of core points, a border point joins the cluster of its
 lowest-indexed core neighbour in the numpy path's cell order (the neighbour
 its candidate scan meets first), and clusters are numbered by their first
 core point in that order. The JAX package also hands large inputs to a
@@ -167,3 +169,57 @@ def dbscan(points: np.ndarray, eps: float, min_points: int) -> np.ndarray:
     out = np.full(n, -1, np.int64)
     out[order] = labels
     return out.astype(np.int32)
+
+
+def agglomerative_precomputed(distance_matrix: np.ndarray,
+                              distance_threshold: float,
+                              linkage: str = "average") -> np.ndarray:
+    """Agglomerative clustering on a precomputed distance matrix (copy of
+    the JAX package's numpy function): merge the closest pair until the
+    smallest inter-cluster distance reaches `distance_threshold`, with
+    Lance-Williams updates for 'average' and 'complete' linkage. The same
+    partition as sklearn's AgglomerativeClustering(n_clusters=None,
+    distance_threshold=t, metric='precomputed'). O(N^3): meant for the
+    few hundred objects of a memory."""
+    d = np.array(distance_matrix, np.float64)
+    n = d.shape[0]
+    if d.shape != (n, n):
+        raise ValueError(f"distance matrix of shape {d.shape} is not square")
+    if linkage not in ("average", "complete"):
+        raise ValueError(linkage)
+    if n == 1:
+        return np.zeros(1, np.int32)
+    np.fill_diagonal(d, np.inf)
+
+    active = np.ones(n, bool)
+    sizes = np.ones(n, np.int64)
+    members: list[list[int]] = [[i] for i in range(n)]
+
+    while active.sum() > 1:
+        sub = np.where(active)[0]
+        dsub = d[np.ix_(sub, sub)]
+        i_s, j_s = np.unravel_index(np.argmin(dsub), dsub.shape)
+        if dsub[i_s, j_s] >= distance_threshold:
+            break
+        a, b = sub[i_s], sub[j_s]
+        # merge b into a
+        for c in sub:
+            if c == a or c == b:
+                continue
+            if linkage == "average":
+                new = (sizes[a] * d[a, c] + sizes[b] * d[b, c]) \
+                    / (sizes[a] + sizes[b])
+            else:
+                new = max(d[a, c], d[b, c])
+            d[a, c] = d[c, a] = new
+        sizes[a] += sizes[b]
+        members[a] += members[b]
+        active[b] = False
+        d[b, :] = np.inf
+        d[:, b] = np.inf
+
+    labels = np.zeros(n, np.int32)
+    for label, root in enumerate(np.where(active)[0]):
+        for m in members[root]:
+            labels[m] = label
+    return labels

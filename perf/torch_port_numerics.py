@@ -10,14 +10,20 @@ PyTorch port, on the CPU.
    package's fp32 Kabsch, of the port's Kabsch (float64) and of the port's
    solve run in fp32 (`kabsch_solve`), and the largest deviation between the
    two fp32 solves.
-3. Localisation over seeds: the 160x220, 5-object scene of
-   tests/test_memory_e2e.py; the held-out view localised with 40 different
-   random streams by the JAX package, by the port, and by the port with its
-   Kabsch solved in fp32 as the reference solves it. Prints successes within
+3. Localisation over random streams (`e2e`): the 160x220, 5-object scene
+   of tests/test_memory_e2e.py, 40 streams. The held-out view is localised
+   by the JAX package and by the port with its Kabsch solves as shipped
+   (float64 in RANSAC and the centroid init, fp32 in ICP), all in float64,
+   and all in fp32 (the reference's arithmetic). Prints successes within
    the reference's gate (0.6 m, 0.3 rad) and the median and largest
    translation error.
+4. The same over 48 streams (`cli`) on the 7-view 120x160 TUM dataset of
+   tests/test_torch_cli.py, against three memories that its trial CLI
+   builds: the port's, the JAX package's by its numpy path, and the JAX
+   package's with its compiled helpers (see `cli_scene_over_seeds`).
 
-Run: JAX_PLATFORMS=cpu python perf/torch_port_numerics.py
+Run: JAX_PLATFORMS=cpu python perf/torch_port_numerics.py [svd kabsch e2e cli]
+(the parts named, all by default).
 """
 
 import os
@@ -25,6 +31,8 @@ import os
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import contextlib  # noqa: E402
+import pickle  # noqa: E402
+import sys  # noqa: E402
 
 import jax  # noqa: E402
 
@@ -93,36 +101,33 @@ def kabsch_accuracy():
 
 
 @contextlib.contextmanager
-def fp32_kabsch():
-    """The port's modules solve Kabsch in fp32 while inside."""
-    mods = (ticp, transac, tlk)
-    saved = [m.kabsch_transform for m in mods]
-    for m in mods:
-        m.kabsch_transform = tkab.kabsch_solve
+def kabsch_in(precision: str):
+    """The port's Kabsch solves while inside: "shipped" (float64 in RANSAC
+    and the centroid init, fp32 in ICP), "float64" (ICP too) or "fp32"
+    (all three, the reference's arithmetic)."""
+    solve = {"float64": tkab.kabsch_transform, "fp32": tkab.kabsch_solve}
+    saved = (ticp.kabsch_solve, transac.kabsch_transform,
+             tlk.kabsch_transform)
+    if precision == "float64":
+        ticp.kabsch_solve = solve["float64"]
+    elif precision == "fp32":
+        transac.kabsch_transform = tlk.kabsch_transform = solve["fp32"]
     try:
         yield
     finally:
-        for m, f in zip(mods, saved):
-            m.kabsch_transform = f
+        (ticp.kabsch_solve, transac.kabsch_transform,
+         tlk.kabsch_transform) = saved
 
 
-def localisation_over_seeds(n_seeds=40):
-    from instance_based_loc_tpu.data.synthetic import (
-        default_scene, render_scene, ring_poses)
+def _packages(scene, focal):
     from instance_based_loc_tpu.memory import (
         ObjectMemory as JaxMemory, ColorRegionDetector as JaxDetector)
     from instance_based_loc_tpu.models.embedders import (
         get_embedder as jax_embedder)
-    from instance_based_loc_tpu.ops.transforms import quaternion_error
     from instance_based_loc_tpu_torch.memory import (
         ObjectMemory, ColorRegionDetector)
     from instance_based_loc_tpu_torch.models.embedders import get_embedder
-
-    focal, h, w = 200.0, 160, 220
-    scene = default_scene(num_objects=5, seed=3)
-    poses = ring_poses(7, radius=4.5, height=1.3, target=(0, 0.4, 0))
-    frames = [render_scene(scene, p, h, w, focal) for p in poses]
-    builds = {
+    return {
         "jax": lambda: JaxMemory(
             detector=JaxDetector(min_area=80,
                                  floor_colors=[scene.floor_color]),
@@ -135,30 +140,144 @@ def localisation_over_seeds(n_seeds=40):
             get_embeddings_func=get_embedder("color"), log_enabled=False,
             device="cpu"),
     }
-    builds["port fp32 kabsch"] = builds["port"]
-    for name, make in builds.items():
-        with (fp32_kabsch() if name == "port fp32 kabsch"
+
+
+VARIANTS = (("jax", None), ("port", "shipped"), ("port", "float64"),
+            ("port", "fp32"))
+
+
+def localisation_over_seeds(n_seeds=40):
+    """The 5-object 160x220 scene of tests/test_memory_e2e.py: views 0-5
+    built, DBSCAN reclustering, view 6 localised."""
+    from instance_based_loc_tpu.data.synthetic import (
+        default_scene, render_scene, ring_poses)
+    focal, h, w = 200.0, 160, 220
+    scene = default_scene(num_objects=5, seed=3)
+    poses = ring_poses(7, radius=4.5, height=1.3, target=(0, 0.4, 0))
+    frames = [render_scene(scene, p, h, w, focal) for p in poses]
+    makes = _packages(scene, focal)
+    for package, precision in VARIANTS:
+        memory = makes[package]()
+        for i in range(6):
+            rgb, depth, _ = frames[i]
+            memory.process_image(rgb, depth, poses[i], consider_floor=True,
+                                 min_points=200, outlier_removal_config=None)
+        memory.downsample_all_objects(voxel_size=0.02)
+        memory.recluster_objects_with_dbscan(eps=0.1,
+                                             min_points_per_cluster=40)
+        rgb, depth, _ = frames[6]
+        with (kabsch_in(precision) if precision
               else contextlib.nullcontext()):
-            _localise_seeds(name, make, frames, poses, n_seeds,
-                            quaternion_error)
+            _localise_seeds(f"e2e scene, {package} {precision or ''}",
+                            memory, rgb, depth, poses[6], n_seeds, {})
 
 
-def _localise_seeds(name, make, frames, poses, n_seeds, quaternion_error):
-    memory = make()
-    for i in range(6):
-        rgb, depth, _ = frames[i]
-        memory.process_image(rgb, depth, poses[i], consider_floor=True,
-                             min_points=200, outlier_removal_config=None)
-    memory.downsample_all_objects(voxel_size=0.02)
-    memory.recluster_objects_with_dbscan(eps=0.1,
-                                         min_points_per_cluster=40)
-    rgb, depth, _ = frames[6]
+@contextlib.contextmanager
+def jax_compiled_helpers(on: bool):
+    """The JAX package builds with its compiled helpers (voxel grid, DBSCAN,
+    radius outliers) while inside if `on`, else by its numpy path, which
+    the port follows."""
+    from instance_based_loc_tpu.ops import native
+    names = ("voxel_downsample_native", "dbscan_native",
+             "radius_outlier_native")
+    saved = [getattr(native, n) for n in names]
+    if not on:
+        for n in names:
+            setattr(native, n, lambda *a, **k: None)
+    try:
+        yield
+    finally:
+        for n, f in zip(names, saved):
+            setattr(native, n, f)
+
+
+def cli_scene_over_seeds(n_seeds=48):
+    """The 7-view 120x160 TUM dataset of tests/test_torch_cli.py (the JAX
+    writer's), built as the trial CLI builds it (clustering_and_IoU
+    reclustering) three times: by the port, by the JAX package by its
+    numpy path, and by the JAX package with its compiled helpers (its
+    default). View 5 is localised against each memory. The port's memory
+    and the JAX numpy path's differ only by fp32 rounding (printed), so
+    what that changes in either package's count is the count's noise."""
+    import tempfile
+    from instance_based_loc_tpu.cli import localisation_trial as jlt
+    from instance_based_loc_tpu.data.loader import RGBDDataset as JaxDataset
+    from instance_based_loc_tpu.data.synthetic import (default_scene,
+                                                       write_tum_dataset)
+    from instance_based_loc_tpu_torch.cli import localisation_trial as lt
+    from instance_based_loc_tpu_torch.data.loader import RGBDDataset
+    scene = default_scene(num_objects=4, seed=5)
+    flags = ["-e", "5", "--consider-floor", "--min-points", "150",
+             "--focal-length", "150", "--sampling-period", "1",
+             "--downsample-voxel-size", "0.02", "--dbscan-eps", "0.1",
+             "--dbscan-min-points", "40", "--quiet"]
+    with tempfile.TemporaryDirectory() as tmp:
+        write_tum_dataset(tmp, scene=scene, n_views=7, height=120,
+                          width=160, focal_length=150.0)
+        flags = ["--convention", "tum", "--data-path", tmp, *flags]
+        makes = _packages(scene, 150.0)
+        ds = RGBDDataset(tmp, [5], convention="tum", focal_length_x=150.0,
+                         focal_length_y=150.0, sampling_period=1,
+                         build_map=False, device="cpu")
+        port = makes["port"]()
+        lt.build_memory(lt.apply_convention_defaults(lt.make_parser()
+                        .parse_args(flags + ["--device", "cpu"])),
+                        port, ds, None)
+        paths = {"port memory": f"{tmp}/port.pkl"}
+        port.save_to_pkl(paths["port memory"])
+        jds = JaxDataset(tmp, [5], convention="tum", focal_length_x=150.0,
+                         focal_length_y=150.0, sampling_period=1,
+                         build_map=False)
+        jargs = jlt.apply_convention_defaults(jlt.make_parser()
+                                              .parse_args(flags))
+        for name, on in (("JAX memory, numpy path", False),
+                         ("JAX memory, compiled helpers", True)):
+            memory = makes["jax"]()
+            with jax_compiled_helpers(on):
+                jlt.build_memory(jargs, memory, jds, None)
+            paths[name] = f"{tmp}/{len(paths)}.pkl"
+            memory.save_to_pkl(paths[name])
+        clouds = {}
+        for name, path in paths.items():
+            with open(path, "rb") as f:
+                clouds[name] = [o[1] for o in pickle.load(f)["memory"]]
+        a, b = clouds["port memory"], clouds["JAX memory, numpy path"]
+        gap = (max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+               if [len(x) for x in a] == [len(y) for y in b] else None)
+        print(f"CLI scene: port memory vs the JAX numpy path's: "
+              f"{[len(x) for x in a]} vs {[len(y) for y in b]} points, "
+              f"max |diff| {gap}; compiled helpers: "
+              f"{[len(x) for x in clouds['JAX memory, compiled helpers']]}",
+              flush=True)
+        rgb, depth, target = ds.get_image_data(5)
+        rgb, depth = port.load_rgb_image_func(rgb), \
+            port.load_depth_image_func(depth)
+        kwargs = dict(depth_factor=5000.0, fpfh_global_dist_factor=2.0,
+                      fpfh_local_dist_factor=0.4, fpfh_voxel_size=0.05)
+        runs = [("port memory", package, precision)
+                for package, precision in VARIANTS]
+        runs += [(name, package, precision) for name in paths
+                 if name != "port memory"
+                 for package, precision in VARIANTS[:2]]
+        for name, package, precision in runs:
+            memory = makes[package]()
+            memory.load(paths[name])
+            with (kabsch_in(precision) if precision
+                  else contextlib.nullcontext()):
+                _localise_seeds(f"CLI scene, {name}, {package} "
+                                f"{precision or ''}", memory, rgb, depth,
+                                target, n_seeds, kwargs)
+
+
+def _localise_seeds(name, memory, rgb, depth, target, n_seeds, kwargs):
+    from instance_based_loc_tpu.ops.transforms import quaternion_error
     errs = []
     for seed in range(n_seeds):
         memory._frame_counter = seed     # the query's random stream
-        est, _ = memory.localise(rgb, depth, outlier_removal_config=None)
-        te = float(np.linalg.norm(est[:3] - poses[6][:3]))
-        re_ = float(quaternion_error(jnp.asarray(poses[6][3:]),
+        est, _ = memory.localise(rgb, depth, outlier_removal_config=None,
+                                 **kwargs)
+        te = float(np.linalg.norm(est[:3] - np.asarray(target)[:3]))
+        re_ = float(quaternion_error(jnp.asarray(target[3:], jnp.float32),
                                      jnp.asarray(est[3:], jnp.float32)))
         errs.append((te, re_))
     ok = sum(te < 0.6 and re_ < 0.3 for te, re_ in errs)
@@ -167,7 +286,9 @@ def _localise_seeds(name, make, frames, poses, n_seeds, quaternion_error):
           f"median {np.median(te):.3f} m, max {te[-1]:.3f} m", flush=True)
 
 
+PARTS = {"svd": svd_orthogonality, "kabsch": kabsch_accuracy,
+         "e2e": localisation_over_seeds, "cli": cli_scene_over_seeds}
+
 if __name__ == "__main__":
-    svd_orthogonality()
-    kabsch_accuracy()
-    localisation_over_seeds()
+    for part in sys.argv[1:] or PARTS:
+        PARTS[part]()

@@ -336,6 +336,28 @@ def case_dbscan(rng):
     return out
 
 
+def case_agglomerative(rng):
+    # embeddings in a few groups (cosine distances, as the memory's
+    # reclustering builds them) and a random symmetric matrix, both
+    # linkages, thresholds that merge some and not all
+    embs = np.concatenate([c + 0.3 * rng.normal(size=(12, 8))
+                           for c in rng.normal(size=(4, 8))])
+    embs /= np.linalg.norm(embs, axis=1, keepdims=True)
+    cos = 1.0 - embs @ embs.T
+    noise = rng.uniform(size=(30, 30))
+    noise = (noise + noise.T) / 2
+    np.fill_diagonal(noise, 0.0)
+    out = []
+    for dist in (cos, noise):
+        for linkage in ("average", "complete"):
+            for thr in (0.2, 0.5, 0.9):
+                ref = jcl.agglomerative_precomputed(dist, thr, linkage)
+                got = clustering.agglomerative_precomputed(dist, thr, linkage)
+                out.append((ref, got, 0))
+    assert len(np.unique(out[1][0])) not in (1, len(embs))
+    return out
+
+
 CASES = {name[5:]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 

@@ -329,3 +329,101 @@ def test_floor_removal_and_pkl_round_trip_match_jax(memories, tmp_path):
         [o.names for o in port_copy.memory]
     for a, b in zip(reloaded.memory, port_copy.memory):
         np.testing.assert_array_equal(a.pts, b.pts)
+
+
+# --------------------------------------------------------------------------- #
+# reclustering: each strategy after downsampling, both packages
+# --------------------------------------------------------------------------- #
+RECLUSTER = {
+    # the trial CLI's default strategy with the arguments it passes
+    "clustering_and_IoU": ("recluster_via_clustering_and_IoU",
+                           dict(embedding_distance_threshold=0.5, eps=0.1,
+                                min_points_per_cluster=40,
+                                IoU_threshold=0.25)),
+    "agglomerative": ("recluster_via_agglomerative_clustering",
+                      dict(embedding_distance_threshold=0.4)),
+    "combined": ("recluster_via_combined",
+                 dict(embedding_distance_threshold=0.4, eps=0.1,
+                      min_points_per_cluster=40)),
+}
+
+
+def _downsampled(memories, monkeypatch, tmp_path):
+    """The JAX package's built memory in both packages (through its pkl:
+    the same points in the same order), downsampled; the JAX package on
+    its numpy paths (its compiled helpers switched off), which the port
+    matches row for row."""
+    from instance_based_loc_tpu.ops import native
+    monkeypatch.setattr(native, "voxel_downsample_native",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(native, "dbscan_native", lambda *a, **k: None)
+    (jax_built, _), (port_built, _) = memories
+    jax_mem, port_mem = copy.deepcopy(jax_built), copy.deepcopy(port_built)
+    path = str(tmp_path / "built.pkl")
+    jax_mem.save_to_pkl(path)
+    port_mem.load(path)
+    for mem in (jax_mem, port_mem):
+        mem.downsample_all_objects(voxel_size=0.02)
+    return jax_mem, port_mem
+
+
+@pytest.mark.parametrize("strategy", sorted(RECLUSTER))
+def test_recluster_matches_jax(memories, monkeypatch, tmp_path, strategy):
+    jax_mem, port_mem = _downsampled(memories, monkeypatch, tmp_path)
+    method, kwargs = RECLUSTER[strategy]
+    getattr(jax_mem, method)(**kwargs)
+    getattr(port_mem, method)(**kwargs)
+    assert 0 < len(port_mem.memory) == len(jax_mem.memory)
+    for a, b in zip(port_mem.memory, jax_mem.memory):
+        assert a.names == b.names
+        assert a.id == b.id
+        assert a.pts.shape == b.pts.shape
+        np.testing.assert_allclose(a.pts, b.pts, atol=1e-5)
+        np.testing.assert_allclose(a.mean_emb, b.mean_emb, atol=1e-6)
+
+
+def test_recluster_iou_matrix_matches_jax(memories, monkeypatch, tmp_path):
+    """`_recluster_IoU`'s staged clouds (numpy's default_rng(0) draw of at
+    most 2048 points per object) and its IoU matrix, against the JAX
+    package's staging (object_memory.py:445-456) and matrix; the
+    clustering of both matrices at the CLI's IoU threshold (0.25) is the
+    same."""
+    from instance_based_loc_tpu.ops.iou3d import (
+        pairwise_obb_iou as jax_pairwise_obb_iou)
+    from instance_based_loc_tpu.ops.pointcloud import round_up_pow2
+    from instance_based_loc_tpu_torch.ops.iou3d import pairwise_obb_iou
+    jax_mem, port_mem = _downsampled(memories, monkeypatch, tmp_path)
+    k = len(jax_mem.memory)
+    cap = round_up_pow2(
+        min(max(max(o.num_points() for o in jax_mem.memory), 8), 2048))
+    rng = np.random.default_rng(0)
+    pts = np.zeros((k, cap, 3), np.float32)
+    msk = np.zeros((k, cap), bool)
+    for i, obj in enumerate(jax_mem.memory):
+        p = obj.points()
+        if len(p) > cap:
+            p = p[rng.choice(len(p), cap, replace=False)]
+        pts[i, :len(p)] = p
+        msk[i, :len(p)] = True
+    ref = np.asarray(jax_pairwise_obb_iou(jnp.asarray(pts), jnp.asarray(msk)))
+
+    tpts, tmsk = port_mem._iou_clouds()
+    np.testing.assert_array_equal(tmsk, msk)
+    np.testing.assert_allclose(tpts, pts, atol=1e-6)
+    out = pairwise_obb_iou(torch.as_tensor(tpts),
+                           torch.as_tensor(tmsk)).numpy()
+    assert k > 5 and (ref[~np.eye(k, dtype=bool)] > 0).any()
+    # 1e-4, not 1e-5: both packages sum volume tetrahedra that reach from
+    # the world origin to boxes ~3 m out, each of size |p|^3 ~ 20 m^3, in
+    # fp32 and in their own order (4.4e-5 here; each is 1.4e-4 off the
+    # same sums in float64)
+    np.testing.assert_allclose(out, ref, atol=1e-4)
+    from instance_based_loc_tpu.ops.clustering import (
+        agglomerative_precomputed as jax_agglomerative)
+    from instance_based_loc_tpu_torch.ops.clustering import (
+        agglomerative_precomputed)
+    np.testing.assert_array_equal(
+        agglomerative_precomputed(1.0 - out, 0.75),
+        jax_agglomerative(1.0 - ref, 0.75))
+    port_mem._recluster_IoU(0.25)
+    assert port_mem.timer.counts["recluster.iou_matrix"] == 1
