@@ -4,10 +4,11 @@
 --convention flag; the flags and the results.txt format are kept).
 
 It runs on the card by default; `--device cpu` runs it on the CPU, and
-without a card the default raises. Three flags differ from the JAX
-package's: `--serve-batch` above 1 exits (batched serving is not ported
-yet), `--serve-data-axis` above 1 raises (one card), and `--embeddings
-dator` raises (not ported yet).
+without a card the default raises. `--serve-batch G` serves the eval views
+through `ObjectMemory.localise_many` in chunks of G queries, one program
+per chunk (a CUDA-graph replay on the card where the query configuration
+allows it), as the JAX CLI's throughput mode does; `--serve-data-axis`
+above 1 raises, since the port runs on one card.
 
 Example (synthetic fixture, weights-free):
     python -m instance_based_loc_tpu_torch.cli.localisation_trial \\
@@ -174,13 +175,13 @@ def build_memory(args, memory, dataloader, outlier_cfg):
 def main(args, detector=None):
     """Build (or load) the memory, localise the eval views, write the
     report; returns (translation errors, rotation errors)."""
-    if args.serve_batch > 1:
-        raise SystemExit("--serve-batch above 1 (batched serving) is not "
-                         "ported yet: ROADMAP.md queue 1, 'Multi-query "
-                         "serving and a torch bench entry'")
     if args.serve_data_axis > 1:
         raise ValueError("--serve-data-axis above 1: the port runs on one "
                          "card")
+    # per-frame debug ply dumps are a latency-mode feature
+    if args.serve_batch > 1 and args.save_point_clouds:
+        raise SystemExit("--save-point-clouds requires latency-mode "
+                         "serving; drop --serve-batch")
     device = resolve_device(args.device)
     embed_kwargs = ({"checkpoint_path": args.embedder_checkpoint}
                     if getattr(args, "embedder_checkpoint", None) else {})
@@ -235,13 +236,24 @@ def main(args, detector=None):
         fpfh_voxel_size=args.fpfh_voxel_size,
         depth_factor=depth_factor)
 
+    frames_meta = [dataloader.get_image_data(idx) for idx in args.eval_img_inds]
+    if args.serve_batch > 1:
+        # throughput serving: chunks of G queries, one device program each
+        # (bench.py's serving configuration)
+        results = memory.localise_many(
+            [(rgb, depth) for rgb, depth, _ in frames_meta],
+            batch=args.serve_batch, **loc_kwargs)
+    else:
+        results = [memory.localise(
+            rgb_path, depth_path, testname=args.testname,
+            subtest_name=str(idx), save_point_clouds=args.save_point_clouds,
+            **loc_kwargs)
+            for idx, (rgb_path, depth_path, _) in zip(args.eval_img_inds,
+                                                      frames_meta)]
+
     trans_errors, rot_errors, assignments = [], [], []
-    for idx in args.eval_img_inds:
-        rgb_path, depth_path, target_pose = dataloader.get_image_data(idx)
-        estimated_pose, assn = memory.localise(
-            rgb_path, depth_path,
-            testname=args.testname, subtest_name=str(idx),
-            save_point_clouds=args.save_point_clouds, **loc_kwargs)
+    for idx, (_, _, target_pose), (estimated_pose, assn) in zip(
+            args.eval_img_inds, frames_meta, results):
         te, re_ = pose_errors(target_pose, estimated_pose)
         print(f"Localisation {idx}: trans={te:.3f} rot={re_:.3f} "
               f"{'SUCCESS' if is_success(te, re_) else 'MISALIGNED'}")
@@ -266,8 +278,7 @@ def make_parser():
     p.add_argument("--data-path", type=str, required=True)
     p.add_argument("-e", "--eval-img-inds", type=int, nargs="+", default=[4])
     p.add_argument("--embeddings", type=str, default="dino",
-                   help="clip | dino | vit | color | dummy (dator is not "
-                        "ported yet)")
+                   help="clip | dino | vit | dator | color | dummy")
     p.add_argument("--detector", type=str, default="color",
                    help="cascade (RAM+GroundingDINO+SAM; requires checkpoints)"
                         " | color (weights-free default) | depth "
@@ -281,7 +292,7 @@ def make_parser():
     p.add_argument("--sam-checkpoint", type=str, default=None)
     p.add_argument("--embedder-checkpoint", type=str, default=None,
                    help="weights for --embeddings vit/dino/clip (the port's "
-                        "own state dict)")
+                        "own state dict) or dator (a flat .npz checkpoint)")
     p.add_argument("--focal-length-x", "--focal-length", type=float,
                    default=None, dest="focal_length_x")
     p.add_argument("--focal-length-y", type=float, default=None)
@@ -314,8 +325,9 @@ def make_parser():
                    help="disable radius outlier filtering (coarse synthetic "
                         "depth)")
     p.add_argument("--serve-batch", type=int, default=1,
-                   help="batched serving of the eval queries; not ported "
-                        "yet, so only 1 (latency mode) runs")
+                   help="throughput serving: localise the eval views in "
+                        "chunks of G queries, one device program per chunk "
+                        "(1 = latency mode, one localise per view)")
     p.add_argument("--serve-data-axis", type=int, default=1,
                    help="the JAX package's multi-chip serving axis; the "
                         "port runs on one card, so only 1 runs")

@@ -6,10 +6,17 @@
 * memory-build frames run `process_frame` on the memory's device:
   backprojection, outlier removal, noise injection, world transform and the
   per-mask subsample, with one fetch per frame;
-* the localise query runs `localise_frame` on the device: every point cloud
-  stays there and one small fetch brings back the pose and the per-assignment
-  statistics. The memory side is packed once per memory version
-  (`_pack_memory`);
+* the localise query runs `localise_frames_batched` on the device: every
+  point cloud stays there and one small fetch brings back the pose and the
+  per-assignment statistics. The memory side is packed once per memory
+  version (`_pack_memory`). On the card the program replays as a CUDA graph
+  captured once per shape bucket (`ops/query_graph.py`), unless its
+  configuration syncs with the host (radius-outlier passes, ICP early exit);
+* `localise_many` serves a stream of frames in chunks of G queries, one
+  program per chunk, with the host stages of the next chunk overlapping the
+  card's work on this one; `localise_batched` runs a list of frames as one
+  program per shape bucket. Each row gives what `localise` gives that frame
+  under the same seed;
 * instance bookkeeping (ObjectInfo, clustering, merging) is host numpy;
   the reclustering IoU matrix (`ops/iou3d.py`) runs on the device;
 * the final pose is composed from the BEST assignment's means (the
@@ -31,15 +38,23 @@ from .. import resolve_device
 from ..data.loader import load_depth, load_rgb
 from ..ops.clustering import agglomerative_precomputed, dbscan
 from ..ops.iou3d import pairwise_obb_iou
-from ..ops.localise_kernels import localise_frame, make_subsets, process_frame
+from ..ops.localise_kernels import (localise_frames_batched, make_subsets,
+                                    process_frame)
 from ..ops.outliers import DEFAULT_OUTLIER_REMOVAL_CONFIG
 from ..ops.pointcloud import round_up_pow2
+from ..ops.query_graph import QUERY_TENSORS, QueryGraph, graphable
 from ..utils.logging import conditional_log
 from ..utils.ply import write_ply
 from ..utils.profiling import StageTimer
 from .detection import Detections
 from .object_info import ObjectInfo
 from .phrases import check_if_floor
+
+
+# the query program's outputs a chunk fetches (and with debug dumps)
+FETCHED = ("active", "assn_valid", "pair_valid", "assn_det", "assn_mem",
+           "best", "pose7", "rmse", "fitness", "full_rmse", "full_fitness")
+DEBUG_FETCHED = ("eval_det_pts", "eval_det_msk", "transform")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -140,12 +155,16 @@ class ObjectMemory:
         rep = "".join(f"\t{obj}\n" for obj in self.memory)
         return rep if rep else "\tNo objects in memory yet."
 
-    def _generator(self) -> torch.Generator:
-        """A fresh generator per frame, seeded by the frame counter (the
-        reference's PRNGKey(frame_counter))."""
+    def _next_seed(self) -> int:
+        """The next frame's seed: the frame counter (the reference's
+        PRNGKey(frame_counter))."""
         self._frame_counter += 1
+        return self._frame_counter
+
+    def _generator(self) -> torch.Generator:
+        """A fresh generator per frame, seeded by the frame counter."""
         return torch.Generator(device=self.device).manual_seed(
-            self._frame_counter)
+            self._next_seed())
 
     # ------------------------------------------------------------------ #
     # build
@@ -506,8 +525,10 @@ class ObjectMemory:
 
         def put(x):
             return torch.as_tensor(x, device=self.device)
+        # graphs: the query program's CUDA graphs, captured per shape bucket
+        # against these tensors (they die with the pack)
         self._pack = dict(
-            m_pad=m_pad, e_dim=e_dim,
+            m_pad=m_pad, e_dim=e_dim, graphs={},
             mem_pts=put(pts), mem_cols=put(cols), mem_msk=put(msk),
             mem_cent=put(cent), mem_ex=put(ex), mem_ex_valid=put(ex_valid),
             mem_valid=put(valid), eval_pts=put(ev), eval_msk=put(ev_msk))
@@ -526,21 +547,193 @@ class ObjectMemory:
         hh = self._localise_host(image_path, depth_image_path, **kwargs)
         if "result" in hh:
             return hh["result"]
-        keys = ["active", "assn_valid", "pair_valid", "assn_det", "assn_mem",
-                "best", "pose7", "rmse", "fitness", "full_rmse",
-                "full_fitness"]
-        if save_point_clouds:
-            keys += ["eval_det_pts", "eval_det_msk", "transform"]
-        with self.timer.stage("loc.device"):
-            out = localise_frame(*hh["args"], hh["generator"],
-                                 **hh["statics"])
-            out = {key: out[key].cpu().numpy() for key in keys}
+        handle = self._dispatch_batch([hh], [0], keep_debug=save_point_clouds)
+        out = {key: v[0] for key, v in self._fetch(handle).items()}
         with self.timer.stage("loc.finish"):
             result = self._finish_out(out, hh["zero"])
             if save_point_clouds and result[1][0]:
                 self._save_debug_clouds(out, result[1][0], testname,
                                         subtest_name, save_root)
         return result
+
+    def localise_many(self, frames, overlap: bool = True, batch: int = 1,
+                      batch_mode: str = "vmap", **kwargs):
+        """Throughput mode: localise a stream of frames, a list of
+        (image_path_or_rgb, depth_path_or_depth), in chunks of `batch`
+        queries, each chunk one device program (`localise_frames_batched`;
+        on the card a CUDA-graph replay). A partial chunk, or a chunk whose
+        frames fall in several shape buckets, is padded to `batch` by
+        repeating its last frame; padding rows are computed and dropped, so
+        every chunk runs at one batch shape.
+
+        overlap=True fetches each chunk's results on a consumer thread while
+        this thread runs the next chunk's host stages (load, detect, embed,
+        staging) and launches its program. Results are the same either way,
+        and each frame's are what `localise` gives it under the same seed:
+        the frames that reach the device draw the frame counter's next
+        seeds in stream order, as `localise` called on each in turn would.
+        batch_mode="scan" (the JAX package's sequential program) is not
+        ported: see `localise_batched`."""
+        return self._localise_many_chunked(frames, max(1, batch), batch_mode,
+                                           overlap, **kwargs)
+
+    def _localise_many_chunked(self, frames, batch, batch_mode, overlap,
+                               graph=None, **kwargs):
+        """`localise_many` with the dispatch's `graph` choice (None: a CUDA
+        graph on the card where the configuration allows it; False: eager;
+        True: a graph, raising where the configuration does not allow
+        one)."""
+        import queue
+        import threading
+
+        _check_batch_mode(batch_mode)
+        results: list = [None] * len(frames)
+        errors: list = []
+        q: "queue.Queue" = queue.Queue(maxsize=4)
+
+        def consumer():
+            while True:
+                h = q.get()
+                if h is None:
+                    return
+                try:
+                    self._finish_batch(h, results)
+                except BaseException as e:   # surface on the caller's thread
+                    errors.append(e)
+
+        t = threading.Thread(target=consumer, daemon=True)
+        if overlap:
+            t.start()
+        pending: list = []
+        try:
+            for start in range(0, len(frames), batch):
+                chunk = frames[start:start + batch]
+                hosts = {start + j: self._localise_host(rgb, depth, **kwargs)
+                         for j, (rgb, depth) in enumerate(chunk)}
+                for idxs in self._buckets(hosts, results).values():
+                    h = self._dispatch_batch(hosts, idxs, pad_to=batch,
+                                             graph=graph)
+                    if overlap:
+                        q.put(h)
+                    else:
+                        pending.append(h)
+        finally:
+            if overlap:
+                q.put(None)
+                t.join()
+        for h in pending:
+            self._finish_batch(h, results)
+        if errors:
+            raise errors[0]
+        return results
+
+    def localise_batched(self, frames, batch_mode: str = "vmap", **kwargs):
+        """Batch localisation: the frames of each shape bucket run as ONE
+        device program with one upload and one fetch. `frames` is a list of
+        (rgb, depth) like localise_many.
+
+        batch_mode "vmap" (the default, and the only mode ported) gives
+        each frame what `localise` gives it. The JAX package's "scan" runs
+        the frames one after another inside one program; its loop context
+        shifts backprojection by ~1 ulp there, which registration can turn
+        into another similarly-scored assignment, so the port leaves it out
+        and raises for it."""
+        _check_batch_mode(batch_mode)
+        hosts = {i: self._localise_host(rgb, depth, **kwargs)
+                 for i, (rgb, depth) in enumerate(frames)}
+        results: list = [None] * len(frames)
+        for idxs in self._buckets(hosts, results).values():
+            self._finish_batch(self._dispatch_batch(hosts, idxs), results)
+        return results
+
+    @staticmethod
+    def _buckets(hosts: dict, results: list) -> dict:
+        """Group the frames that need the device by shape bucket (the JAX
+        key: the query arrays' shapes, the scalars and the statics); frames
+        decided on the host go straight into `results`."""
+        groups: dict = {}
+        for i, hh in hosts.items():
+            if "result" in hh:
+                results[i] = hh["result"]
+                continue
+            key = (tuple(hh["query"][name].shape for name in QUERY_TENSORS),
+                   hh["scalars"], tuple(sorted(hh["statics"].items())))
+            groups.setdefault(key, []).append(i)
+        return groups
+
+    def _dispatch_batch(self, hosts, idxs, pad_to=None, graph=None,
+                        keep_debug: bool = False):
+        """Stage the host handles at `idxs` as one chunk and launch its
+        program; returns a handle for _fetch / _finish_batch. pad_to=N
+        repeats the last frame so every chunk runs at one batch shape
+        (extra rows are dropped at decode). graph: see
+        `_localise_many_chunked`."""
+        take = list(idxs)
+        if pad_to is not None and len(take) < pad_to:
+            take += [take[-1]] * (pad_to - len(take))
+        h0 = hosts[idxs[0]]
+        dev = self.device
+        cuda = dev.type == "cuda"
+        if graph is None:
+            graph = cuda and graphable(h0["statics"])
+        elif graph and not cuda:
+            raise ValueError("CUDA-graph replay needs the card")
+        seeds = [hosts[i]["seed"] for i in take]
+        keys = FETCHED + (DEBUG_FETCHED if keep_debug else ())
+        with self.timer.stage("loc.device"):
+            query = {}
+            for name in QUERY_TENSORS:
+                host = torch.from_numpy(np.stack(
+                    [hosts[i]["query"][name] for i in take]))
+                if cuda:
+                    host = host.pin_memory()
+                query[name] = host.to(dev, non_blocking=True)
+            if graph:
+                pack = self._pack_memory()
+                gkey = (tuple((tuple(v.shape), v.dtype)
+                              for v in query.values()),
+                        h0["scalars"], tuple(sorted(h0["statics"].items())))
+                qg = pack["graphs"].get(gkey)
+                if qg is None:
+                    qg = pack["graphs"][gkey] = QueryGraph(
+                        query, h0["mem_args"], h0["scalars"], h0["statics"])
+                out = qg.run(query, seeds)
+            else:
+                gens = [torch.Generator(device=dev).manual_seed(seed)
+                        for seed in seeds]
+                out = localise_frames_batched(
+                    *query.values(), *h0["mem_args"], *h0["scalars"], gens,
+                    **h0["statics"])
+            fetched = {}
+            for key in keys:
+                host = torch.empty(out[key].shape, dtype=out[key].dtype,
+                                   pin_memory=cuda)
+                fetched[key] = host.copy_(out[key], non_blocking=cuda)
+            event = None
+            if cuda:
+                event = torch.cuda.Event()
+                event.record()
+        return {"fetched": fetched, "event": event, "idxs": list(idxs),
+                "hosts": {i: hosts[i] for i in idxs}}
+
+    def _fetch(self, handle) -> dict:
+        """Wait for a chunk's program; its outputs as numpy, one row per
+        query of the chunk (padding rows included)."""
+        with self.timer.stage("loc.fetch"):
+            if handle["event"] is not None:
+                handle["event"].synchronize()
+            return {key: v.numpy() for key, v in handle["fetched"].items()}
+
+    def _finish_batch(self, handle, results):
+        """ONE fetch for the whole chunk, then per-row decode into `results`
+        at each frame's original index (padding rows trail the real ones
+        and are ignored)."""
+        out = self._fetch(handle)
+        with self.timer.stage("loc.finish"):
+            for row, i in enumerate(handle["idxs"]):
+                results[i] = self._finish_out(
+                    {key: v[row] for key, v in out.items()},
+                    handle["hosts"][i]["zero"])
 
     def _localise_host(self, image_path, depth_image_path,
                        outlier_removal_config=None,
@@ -551,8 +744,9 @@ class ObjectMemory:
                        depth_factor: float = 1.0,
                        max_detected_object_num: int = 7,
                        centroid_gate: float = 1.0):
-        """Host stages of a query: load, detect, embed, stage the detections
-        and upload. outlier_removal_config=None means NO outlier removal
+        """Host stages of a query: load, detect, embed and stage the
+        detections as the program's host arrays; draws the frame's seed.
+        outlier_removal_config=None means NO outlier removal
         (unlike the reference's localise default); pass
         LOCALISE_OUTLIER_CONFIG for the reference behaviour."""
         consider_floor = False   # the reference hard-disables it (:886)
@@ -626,22 +820,20 @@ class ObjectMemory:
             icp_fine_iters=ICP_FINE_ITERS, icp_early_exit=ICP_EARLY_EXIT,
             reg_seeds=REG_SEEDS, fpfh_nn=FPFH_MAX_NN,
             ransac_pairs_max=RANSAC_PAIRS_MAX)
-        args = (torch.as_tensor(depth_q, device=dev),
-                torch.as_tensor(np.asarray(rgb, np.uint8), device=dev),
-                torch.as_tensor(np.asarray(masks, bool), device=dev),
-                torch.as_tensor(embs_pad, device=dev),
-                torch.as_tensor(det_valid, device=dev),
-                pack["mem_pts"], pack["mem_cols"], pack["mem_msk"],
-                pack["mem_cent"], pack["mem_ex"], pack["mem_ex_valid"],
-                pack["mem_valid"], pack["eval_pts"], pack["eval_msk"],
-                pack["subsets"],
-                float(self.camera_focal_lenth_x),
-                float(self.camera_focal_lenth_y),
-                cfg["radius"] if cfg else 0.05,
-                float(fpfh_voxel_size), float(fpfh_global_dist_factor),
-                float(fpfh_local_dist_factor), float(centroid_gate))
-        return {"args": args, "statics": statics, "zero": zero,
-                "generator": self._generator()}
+        query = dict(depth=depth_q, rgb=np.asarray(rgb, np.uint8),
+                     masks=np.asarray(masks, bool), det_embs=embs_pad,
+                     det_valid=det_valid)
+        mem_args = (pack["mem_pts"], pack["mem_cols"], pack["mem_msk"],
+                    pack["mem_cent"], pack["mem_ex"], pack["mem_ex_valid"],
+                    pack["mem_valid"], pack["eval_pts"], pack["eval_msk"],
+                    pack["subsets"])
+        scalars = (float(self.camera_focal_lenth_x),
+                   float(self.camera_focal_lenth_y),
+                   cfg["radius"] if cfg else 0.05,
+                   float(fpfh_voxel_size), float(fpfh_global_dist_factor),
+                   float(fpfh_local_dist_factor), float(centroid_gate))
+        return {"query": query, "mem_args": mem_args, "scalars": scalars,
+                "statics": statics, "zero": zero, "seed": self._next_seed()}
 
     def _finish_out(self, out, zero):
         """The host decode of a query's fetched outputs."""
@@ -688,3 +880,14 @@ class ObjectMemory:
         moved_det = det_pts @ gT[:3, :3].T + gT[:3, 3]
         write_ply(os.path.join(subsave, f"_best_full_pcd{best_assn}.ply"),
                   np.concatenate([mem_pts, moved_det]))
+
+
+def _check_batch_mode(batch_mode: str) -> None:
+    if batch_mode == "scan":
+        raise ValueError(
+            "batch_mode='scan' is not ported: the JAX package's sequential "
+            "program shifts backprojection by ~1 ulp, which registration can "
+            "turn into another assignment (JAX object_memory.py:769-775); "
+            "use batch_mode='vmap'")
+    if batch_mode != "vmap":
+        raise ValueError(f"batch_mode must be 'vmap', got {batch_mode!r}")

@@ -6,9 +6,8 @@ Embedders are factories returning one batched callable:
     embed(detections, full_rgb_image, full_depth_image, consider_floor)
         -> np.ndarray (M, E)
 
-Keys mirror the reference CLI (`--embeddings {clip,dino,vit}`) plus the
-weights-free test embedders (`dummy`, `color`). The `dator` entry raises:
-DATOR inference is not ported yet.
+Keys mirror the reference CLI (`--embeddings {clip,dino,vit,dator}`) plus
+the weights-free test embedders (`dummy`, `color`).
 """
 
 from __future__ import annotations
@@ -74,6 +73,8 @@ for _name in ("vit", "dino", "clip"):
 
 
 @register("dator")
-def _dator(**_kwargs):
-    raise NotImplementedError("the dator embedder is not ported yet "
-                              "(ROADMAP.md queue 1, 'DATOR inference')")
+def _dator(checkpoint_path: str | None = None, **kwargs):
+    """The DATOR (FourDNet) RGB-D embedder; `checkpoint_path` is a flat
+    .npz checkpoint (models/dator/embedder.py)."""
+    from .dator.embedder import build_dator_embedder
+    return build_dator_embedder(checkpoint_path=checkpoint_path, **kwargs)

@@ -13,13 +13,17 @@ and drops z == 0 points.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 
+@functools.lru_cache(maxsize=None)
 def centered_pixel_grid(rows: int, cols: int, device="cpu"):
     """The reference's linspace grid: (1, cols) horizontal, (rows, 1)
-    vertical."""
+    vertical. Cached per shape and device, so a captured query program
+    copies nothing from the host."""
     horizontal = torch.as_tensor(
         np.linspace(-cols / 2, cols / 2, cols).astype(np.float32),
         device=device)

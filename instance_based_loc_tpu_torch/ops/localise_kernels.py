@@ -11,6 +11,9 @@
                          coloured ICP + full-cloud evaluation + centroid gate
                          + best-assignment argmax + pose composition.
   localise_frame         the three above as one query.
+  localise_frames_batched  G queries as one program with a leading query
+                         axis, each query giving what localise_frame gives
+                         it, bit for bit.
   process_frame          memory build: backproject + outliers + optional
                          noise + world transform + per-mask subsample.
 
@@ -25,6 +28,7 @@ lower-index-first order.
 
 from __future__ import annotations
 
+import functools
 import itertools
 
 import numpy as np
@@ -53,15 +57,12 @@ def _topk_stable(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-_PERM_CACHE: dict = {}
-
-
-def _fixed_perm(n: int) -> np.ndarray:
-    """The reference's fixed pseudo-random permutation of range(n)."""
-    if n not in _PERM_CACHE:
-        _PERM_CACHE[n] = np.random.default_rng(0x5eed).permutation(n) \
-            .astype(np.int64)
-    return _PERM_CACHE[n]
+@functools.lru_cache(maxsize=None)
+def _fixed_perm(n: int, device) -> torch.Tensor:
+    """The reference's fixed pseudo-random permutation of range(n), made
+    once per device, so a captured program copies nothing from the host."""
+    return torch.as_tensor(np.random.default_rng(0x5eed).permutation(n)
+                           .astype(np.int64), device=device)
 
 
 def _masked_subsample_linear(valid: torch.Tensor, cap: int,
@@ -80,7 +81,7 @@ def _masked_subsample_linear(valid: torch.Tensor, cap: int,
     if shift is None:
         shift = torch.randint(0, n, valid.shape[:-1], generator=generator,
                               device=dev)
-    perm = torch.as_tensor(_fixed_perm(n), device=dev)
+    perm = _fixed_perm(n, dev)
     # jnp.roll(perm, s)[i] == perm[(i - s) % n]
     pos_in_perm = (torch.arange(n, device=dev) - shift[..., None]) % n
     rows = perm[pos_in_perm]                                   # (..., n)
@@ -277,8 +278,11 @@ def _select_body(subsets, vol_vals, vol_idx, m_pad: int, a_pad: int):
     for j in range(k - 1, -1, -1):
         sidx = sidx[torch.sort(pair_code[sidx, j], stable=True).indices]
     skeys = pair_code[sidx]
-    first = torch.any(skeys != torch.roll(skeys, 1, dims=0), dim=-1)
-    first[0] = True
+    # row 0 always starts a run (a where, not an element store: a store of
+    # a host scalar into a 0-d view is a host copy, which a captured
+    # program cannot hold)
+    first = torch.any(skeys != torch.roll(skeys, 1, dims=0), dim=-1) \
+        | (torch.arange(n, device=dev) == 0)
 
     vals_s = vals[sidx]
     keep = first & valid[sidx]
@@ -409,6 +413,26 @@ def _register_one(sp, sc, sm, tp, tc, tm, init_T, has_init, generator, *,
     return T, rmse, fitness
 
 
+@functools.lru_cache(maxsize=None)
+def _slot_partition(lens: tuple, ransac_pairs_max: int, device):
+    """The static split of the assignment rows into FPFH+RANSAC lanes and
+    Kabsch-init-only lanes, as device index tensors made once per layout
+    (a captured program copies nothing from the host): (rows of the first,
+    rows of the second or None, the inverse permutation or None, whether a
+    RANSAC lane can have an init)."""
+    idx_r = [i for i, L in enumerate(lens) if 1 <= L <= ransac_pairs_max]
+    idx_k = [i for i, L in enumerate(lens) if not 1 <= L <= ransac_pairs_max]
+    if not idx_r:
+        raise ValueError("no RANSAC-eligible slot (ransac_pairs_max < 1?)")
+    basin = any(lens[i] >= 2 for i in idx_r)
+    gr = torch.as_tensor(idx_r, device=device)
+    if not idx_k:
+        return gr, None, None, basin
+    gk = torch.as_tensor(idx_k, device=device)
+    inv = torch.as_tensor(np.argsort(np.asarray(idx_r + idx_k)), device=device)
+    return gr, gk, inv, basin
+
+
 def _register_select_body(sel_pts, sel_cols, sel_msk, sel_cent, active,
                           mem_pts, mem_cols, mem_msk, mem_cent,
                           eval_mem_pts, eval_mem_msk,
@@ -515,21 +539,13 @@ def _register_select_body(sel_pts, sel_cols, sel_msk, sel_cent, active,
         if len(lens) != a_rows:
             raise ValueError(f"{len(lens)} slot lengths for {a_rows} rows")
         # static partition: full-path lanes vs Kabsch-init-only lanes
-        idx_r = [i for i, L in enumerate(lens) if 1 <= L <= ransac_pairs_max]
-        idx_k = [i for i, L in enumerate(lens)
-                 if not 1 <= L <= ransac_pairs_max]
-        if not idx_r:
-            raise ValueError("no RANSAC-eligible slot (ransac_pairs_max < 1?)")
-        basin = any(lens[i] >= 2 for i in idx_r)
-        gr = torch.as_tensor(idx_r, device=assn_det.device)
+        gr, gk, inv, basin = _slot_partition(lens, ransac_pairs_max,
+                                             assn_det.device)
         out_r = register(assn_det[gr], assn_mem[gr], pair_valid[gr],
                          True, basin)
-        if idx_k:
-            gk = torch.as_tensor(idx_k, device=assn_det.device)
+        if gk is not None:
             out_k = register(assn_det[gk], assn_mem[gk], pair_valid[gk],
                              False, False)
-            inv = torch.as_tensor(np.argsort(np.asarray(idx_r + idx_k)),
-                                  device=assn_det.device)
             outs = [torch.cat([r, kx])[inv] for r, kx in zip(out_r, out_k)]
         else:
             outs = list(out_r)
@@ -548,9 +564,12 @@ def _register_select_body(sel_pts, sel_cols, sel_msk, sel_cent, active,
     best = torch.argmax(score)
 
     # pose from the best assignment's means (the reference composes it from
-    # loop-leaked means, a bug the JAX package fixed)
-    Rb, tb = T[best, :3, :3], T[best, :3, 3]
-    t_avg = tb + mmeans[best] - Rb @ dmeans[best]
+    # loop-leaked means, a bug the JAX package fixed); indexed by a 1-element
+    # tensor: a 0-d index is read on the host, which a captured program
+    # cannot do
+    at = best.reshape(1)
+    Rb, tb = T[at, :3, :3][0], T[at, :3, 3][0]
+    t_avg = tb + mmeans[at][0] - Rb @ dmeans[at][0]
     pose7 = torch.cat([t_avg, rotmat_to_quat_xyzw(Rb)])
     stats = dict(rmse=rmse, fitness=fitness, full_rmse=full_rmse,
                  full_fitness=full_fitness, transform=gT,
@@ -610,6 +629,39 @@ def localise_frame(depth, rgb, masks, det_embs, det_valid,
                 pair_valid=pair_valid, assn_valid=assn_valid,
                 order=fetch["order"], counts=fetch["counts"],
                 active=fetch["active"], sims=fetch["sims"], **stats)
+
+
+def localise_frames_batched(depth, rgb, masks, det_embs, det_valid,
+                            mem_pts, mem_cols, mem_msk, mem_cent,
+                            mem_ex, mem_ex_valid, mem_valid,
+                            eval_mem_pts, eval_mem_msk, subsets,
+                            fx, fy, radius,
+                            voxel_size, global_dist_factor, local_dist_factor,
+                            centroid_gate, generators, **statics):
+    """G localise queries as one program (counterpart of the reference's
+    vmapped `localise_frames_batched`): depth (G, H, W), rgb (G, H, W, 3),
+    masks (G, Dpad, H, W), det_embs (G, Dpad, E), det_valid (G, Dpad) and
+    one generator per query; the memory tensors are shared, and every
+    output gains a leading query axis.
+
+    Each query runs `localise_frame`'s kernels at `localise_frame`'s shapes
+    and draws from its own generator, so row g is bit for bit what
+    `localise_frame` gives frame g, on any device, as the reference
+    promises of its vmap. A program vectorised over the query axis does
+    not keep that promise on the card: its reductions and matmuls sum in
+    an order that follows the batch size, and registration (normals'
+    orientation, RANSAC's pick, ICP) turns the last-bit differences into
+    other assignments (PERF.md, perf/torch_batch_invariance.py). On
+    the card the G programs replay as one CUDA graph (ops/query_graph.py),
+    which amortises the launches as the reference's single dispatch did."""
+    outs = [localise_frame(depth[g], rgb[g], masks[g], det_embs[g],
+                           det_valid[g], mem_pts, mem_cols, mem_msk,
+                           mem_cent, mem_ex, mem_ex_valid, mem_valid,
+                           eval_mem_pts, eval_mem_msk, subsets, fx, fy,
+                           radius, voxel_size, global_dist_factor,
+                           local_dist_factor, centroid_gate, gen, **statics)
+            for g, gen in enumerate(generators)]
+    return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
 
 
 # --------------------------------------------------------------------------- #

@@ -14,9 +14,17 @@ Conventions, kept from the reference:
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """A small constant tensor, made once per type and device, so a
+    captured program copies nothing from the host."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
@@ -87,8 +95,8 @@ def transform_points_kinect(points: torch.Tensor,
                             pose7: torch.Tensor) -> torch.Tensor:
     """TUM Kinect-frame variant: pre-rotate by euler [0, pi, 0], negate t."""
     r = quat_xyzw_to_rotmat(pose7[3:])
-    r2 = euler_xyz_to_rotmat(torch.tensor([0.0, math.pi, 0.0],
-                                          device=pose7.device))
+    r2 = euler_xyz_to_rotmat(_constant((0.0, math.pi, 0.0), torch.float32,
+                                       pose7.device))
     return points @ (r @ r2).T - pose7[:3]
 
 
@@ -104,8 +112,7 @@ def quaternion_multiply_wxyz(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor
 
 
 def quaternion_conjugate_wxyz(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
-                            device=q.device)
+    return q * _constant((1.0, -1.0, -1.0, -1.0), q.dtype, q.device)
 
 
 def quaternion_error(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:

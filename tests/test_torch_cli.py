@@ -12,6 +12,10 @@
   `ObjectMemory.save` writes ply files that read back exactly.
 * `synth_localisation_trial --quick` localises its eval view within the
   gate.
+* `--serve-batch 4` (throughput serving through `localise_many`) writes the
+  same results file as serial serving on the dataset of
+  `test_memory_e2e.py::test_localisation_trial_cli_serving_mode`, and
+  `--embeddings dator` runs with a tiny npz checkpoint.
 * The flags the port treats differently from the JAX CLI fail loudly.
 """
 
@@ -188,15 +192,92 @@ def test_synth_localisation_trial_quick(tmp_path):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--serve-batch", "2"], SystemExit, "Multi-query"),
     (["--serve-data-axis", "2"], ValueError, "one card"),
-    (["--embeddings", "dator"], NotImplementedError, "DATOR inference"),
+    (["--serve-batch", "2", "--save-point-clouds"], SystemExit,
+     "latency-mode"),
 ])
 def test_flags_the_port_does_not_run_fail_loudly(tmp_path, flags, error,
                                                  match):
     args = _args(str(tmp_path / "absent"), tmp_path, *flags)
     with pytest.raises(error, match=match):
         localisation_trial.main(args)
+
+
+def _serving_dataset(tmp_path):
+    scene = default_scene(num_objects=4, seed=5)
+    data = str(tmp_path / "tum")
+    # the JAX serving test's dataset: 12 views, 4 of them held out
+    write_tum_dataset(data, scene=scene, n_views=12, height=120, width=160,
+                      focal_length=150.0)
+    return scene, data
+
+
+def test_serve_batch_writes_the_serial_results(tmp_path):
+    """`--serve-batch 4` serves the 4 eval views as one chunk; each view
+    draws the seed serial serving gives it, so the results files are
+    identical (the CPU computes the batched rows bit for bit)."""
+    scene, data = _serving_dataset(tmp_path)
+    reports = []
+    for flags in ([], ["--serve-batch", "4"]):
+        out = tmp_path / f"out{len(reports)}"
+        args = _args(data, tmp_path, "-e", "3", "5", "7", "9",
+                     "--out-dir", str(out), *flags)
+        detector = ColorRegionDetector(min_area=80,
+                                       floor_colors=[scene.floor_color])
+        trans_errors, rot_errors = localisation_trial.main(args,
+                                                           detector=detector)
+        reports.append((out / "cli_smoke_results.txt").read_text())
+    assert reports[1] == reports[0]
+    ok = sum(t < TRANS_OK and r < ROT_OK
+             for t, r in zip(trans_errors, rot_errors))
+    assert ok >= 3, (trans_errors, rot_errors)   # the JAX test's gate
+
+
+def test_dator_embeddings_run_with_a_tiny_npz(tmp_path, monkeypatch):
+    """`--embeddings dator --embedder-checkpoint <npz>` builds the memory
+    and localises through the port's FourDNet (a narrow random one: the
+    gate is a finite pose, not success)."""
+    import dataclasses
+
+    import torch
+
+    from instance_based_loc_tpu_torch.models.dator import embedder, fourdnet
+    from instance_based_loc_tpu_torch.models.dator.train import (
+        save_params_npz)
+    from instance_based_loc_tpu_torch.models.dator.transreid_vit import (
+        TransReIDConfig)
+    tiny = fourdnet.FourDNetConfig(
+        backbone=TransReIDConfig(img_height=32, img_width=16, patch_size=8,
+                                 stride_size=8, hidden_size=32, num_layers=2,
+                                 num_heads=4, local_feature=True,
+                                 dtype=torch.float32),
+        reduced_dim=16, num_classes=9, dtype=torch.float32)
+    model = fourdnet.FourDNet(tiny)
+    fourdnet.init_params(model, torch.Generator().manual_seed(0))
+    npz = str(tmp_path / "dator.npz")
+    save_params_npz(model, npz)
+    built = []
+    original = embedder.build_dator_embedder
+
+    def narrow(checkpoint_path=None, **kw):
+        built.append(original(checkpoint_path,
+                              model_cfg=dataclasses.replace(tiny,
+                                                            num_classes=3),
+                              height=32, width=16, **kw))
+        return built[-1]
+    monkeypatch.setattr(embedder, "build_dator_embedder", narrow)
+    scene, data = _serving_dataset(tmp_path)
+    args = _args(data, tmp_path, "--embeddings", "dator",
+                 "--embedder-checkpoint", npz, "-e", "3", "7",
+                 "--serve-batch", "2")
+    detector = ColorRegionDetector(min_area=80,
+                                   floor_colors=[scene.floor_color])
+    trans_errors, rot_errors = localisation_trial.main(args,
+                                                       detector=detector)
+    assert built and built[0].model.cfg.num_classes == 9   # from the npz
+    assert built[0].batches > 0
+    assert len(trans_errors) == 2
+    assert np.all(np.isfinite(trans_errors + rot_errors))
 
 
 def test_default_device_needs_a_card(tmp_path, monkeypatch):

@@ -27,6 +27,11 @@ they are held against the plain version on the same bf16-rounded q, k, v.
 
 MSDA gather: atol 1e-5 (16 fp32 products of the same values summed in
 another order; outputs are a few units in size).
+
+The query program's CUDA-graph replay (`ops/query_graph.py`): on a small
+scene, every `localise_many` result of the replay equals the eager run's
+bit for bit for the same seeds, and a configuration that cannot be captured
+raises rather than running eager.
 """
 
 import pytest
@@ -56,6 +61,10 @@ FP32_TOL = (1e-5, 0.0)
     ((1, 2, 257, 64), torch.bfloat16, 257, BF16_TOL),
     ((1, 2, 72, 64), torch.bfloat16, 70, BF16_TOL),
     ((32, 12, 257, 64), torch.bfloat16, None, BF16_TOL),
+    # the DATOR towers' shape (2 towers x 16 crops, 1 + 16 x 8 tokens): one
+    # key past two 64-key TMA tiles
+    ((32, 12, 129, 64), torch.bfloat16, None, BF16_TOL),
+    ((16, 12, 129, 64), torch.bfloat16, None, BF16_TOL),
     # fp32: the CUDA-core kernel
     ((2, 3, 70, 32), torch.float32, None, FP32_TOL),
     ((2, 3, 70, 32), torch.float32, 33, FP32_TOL),
@@ -169,3 +178,59 @@ def test_msda_gather_kernel_matches_plain_version(s, h, d, q, dtype):
     assert msda_gather.launches == before + 1
     ref = msda_gather.msda_level_gather_reference(vmap, lin, coeff)
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+def _served_memory():
+    """A small scene's memory on the card and four query frames."""
+    from instance_based_loc_tpu_torch.data.synthetic import (
+        default_scene, render_scene, ring_poses)
+    from instance_based_loc_tpu_torch.memory import (ColorRegionDetector,
+                                                     ObjectMemory)
+    from instance_based_loc_tpu_torch.models.embedders import get_embedder
+    scene = default_scene(num_objects=4, seed=3)
+    poses = ring_poses(8, radius=4.5, height=1.3, target=(0, 0.4, 0))
+    frames = [render_scene(scene, p, 120, 160, 150.0) for p in poses]
+    memory = ObjectMemory(
+        detector=ColorRegionDetector(min_area=80,
+                                     floor_colors=[scene.floor_color]),
+        camera_focal_lenth_x=150.0, camera_focal_lenth_y=150.0,
+        get_embeddings_func=get_embedder("color"), log_enabled=False,
+        device="cuda")
+    for i in range(6):
+        memory.process_image(frames[i][0], frames[i][1], poses[i],
+                             consider_floor=True, min_points=150,
+                             outlier_removal_config=None)
+    memory.downsample_all_objects(voxel_size=0.02)
+    memory.recluster_objects_with_dbscan(eps=0.1, min_points_per_cluster=40)
+    return memory, [(frames[i][0], frames[i][1]) for i in (6, 7, 0, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 3])
+def test_query_graph_replay_equals_eager(batch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode")
+    import numpy as np
+    memory, frames = _served_memory()
+    base = memory._frame_counter
+    runs = []
+    for graph in (False, True, True):       # capture, then a replay
+        memory._frame_counter = base
+        runs.append(memory._localise_many_chunked(
+            frames, batch, "vmap", True, graph=graph,
+            outlier_removal_config=None))
+    for run in runs[1:]:
+        for (p_e, a_e), (p_g, a_g) in zip(runs[0], run):
+            assert a_g[0] == a_e[0]
+            assert np.array_equal(p_g, p_e)
+
+
+@pytest.mark.gpu
+def test_query_graph_refuses_a_host_synced_configuration():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode")
+    memory, frames = _served_memory()
+    with pytest.raises(ValueError, match="cannot be captured"):
+        memory._localise_many_chunked(
+            frames[:1], 1, "vmap", False, graph=True,
+            outlier_removal_config={"radius_nb_points": 8, "radius": 0.05})
