@@ -40,19 +40,26 @@ progress line and raise on failure:
               taps from sampling points that spill outside the map; its
               device time comes from torch.profiler (the kernel is shorter
               than its wrapper's launch).
-  7. cascade  the full-width GroundingDINO (Swin-B, BERT-base, 900 queries,
-              6 + 6 layers, 800 px) -> SAM-H (1024 px) cascade with seeded
-              random weights in bf16 builds an object memory of
-              tests/test_neural_e2e.py's scene (views 0 and 2, floor on) and
-              localises view 1; every SAM image encode must launch the
-              attention kernel once per global block and every GroundingDINO
-              forward the gather kernel once per level and deformable
-              layer.
-  8. cascade_vs_cpu  one frame through GroundingDINO (1 + 1 layers) and SAM
-              (SAM-H width, 4 blocks, one global) on the card in bf16 with the
-              kernels, and in fp32 on the CPU with the plain versions, same
-              weights: embedding cosine, mask logits, GroundingDINO logits and
-              boxes within the thresholds written below.
+  7. cascade  the full-width RAM (Swin-L/384, 4585 tags from a tag list
+              the phase writes: tag0 ... tag4584) -> GroundingDINO (Swin-B,
+              BERT-base, 900 queries, 6 + 6 layers, 800 px) -> SAM-H (1024
+              px) cascade with seeded random weights in bf16 builds an object
+              memory of tests/test_neural_e2e.py's scene (views 0 and 2, floor
+              on) and localises view 1; RAM must tag every frame, every SAM
+              image encode must launch the attention kernel once per global
+              block and every GroundingDINO forward the gather kernel once per
+              level and deformable layer. Random weights can tag thousands of
+              the 4585 tags, and GroundingDINO takes at most 256 text tokens,
+              so the cascade grounds the first RAM_MAX_KEYWORDS tags of each
+              frame (vocabulary order): RAM still runs on every frame. Logs
+              the tags per frame and RAM's ms per frame.
+  8. cascade_vs_cpu  one frame through GroundingDINO (1 + 1 layers), SAM
+              (SAM-H width, 4 blocks, one global) and RAM (Swin-L widths, 1
+              block per stage, 2 decoder layers, 4585 tags) on the card in
+              bf16 with the kernels, and in fp32 on the CPU with the plain
+              versions, same weights: embedding cosine, mask logits,
+              GroundingDINO logits and boxes, RAM's tag probabilities within
+              the thresholds written below.
   9. cli      the port's trial CLIs on the card, on datasets that the port's
               writers write (PNG through the port's codec):
               (a) synth_localisation_trial with its defaults (6 objects, 8
@@ -101,6 +108,21 @@ progress line and raise on failure:
               trial CLI with `--embeddings dator --serve-batch 6` on phase
               9 (b)'s TUM dataset: finite poses and 11 launches per crop
               batch.
+ 12. clip_loc the port's clip_loc_trial CLI on phase 9 (b)'s TUM dataset of
+              the bench scene (memory from views 0-5 with the depth detector,
+              DBSCAN reclustering, views 6-8 localised from RGB alone):
+              (a) weights-free (`--embeddings color --detector depth
+                  --no-outlier-removal`): every view within the JAX CLI
+                  test's 1.5 m (tests/test_clip_loc.py), the clip_loc pkl
+                  reads back;
+              (b) `--embeddings clip` (full-width CLIP ViT-B/32, random
+                  weights, bf16) with a random full-width CLIP text tower
+                  saved in the HF layout as `--clip-text-checkpoint`: 12 ViT
+                  kernel launches per crop batch, finite poses;
+              each logs ms per `localize` and the RANSAC samples per call;
+              (c) the ViT kernel at CLIP-B/32's shape (16, 12, 50, 64) bf16
+                  (S = 50, less than one 64-key TMA tile) against its plain
+                  version with phase 2's tolerance, timed beside SDPA.
 
 The last lines are the card's name and power limit, a JSON line describing
 each kernel, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -156,20 +178,30 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str | None = None, iters: int = 50) -> float:
+def device_ms(fn, kernel: str | None = None, iters: int = 50,
+              windows: int = 5) -> float:
     """Mean device time per call of fn() from torch.profiler: of the kernel
     named `kernel` (one launch per call), or of every kernel the call
     launches (kernel=None, e.g. a library call that launches several). Each
-    kernel's mean duration times its launches per call, so a launch the
-    profiler drops now and then does not bias the figure. For a kernel
-    shorter than its Python wrapper's launch, back-to-back CUDA events time
-    the host instead."""
+    kernel's mean duration times its launches per call (its count over the
+    calls, rounded), so the few launches the profiler drops in most windows
+    (1-13 of 50 on an H100) do not bias the figure. For a kernel shorter
+    than its Python wrapper's launch, back-to-back CUDA events time the
+    host instead.
+
+    Now and then the profiler drops most launches (it once kept 5 of 20):
+    a window that kept a kernel fewer times than half the calls is
+    profiled again, up to `windows` times. If every window lost that many,
+    a named kernel's time is the mean duration of the launches the
+    profiler kept (one launch per call), and a library call's comes from
+    CUDA events; the log says which. A named kernel seen more than once
+    per call, or never, fails the check."""
     import collections
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):   # a profiler window that caught no kernel is retried
+    for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -180,15 +212,30 @@ def device_ms(fn, kernel: str | None = None, iters: int = 50) -> float:
             if (e.device_type == torch.autograd.DeviceType.CUDA
                     and (kernel is None or kernel in e.name)):
                 by_name[e.name].append(e.time_range.elapsed_us())
-        if by_name:
+        seen = {name: len(t) for name, t in by_name.items()}
+        if kernel is not None:
+            check(sum(seen.values()) <= iters,
+                  f"{kernel} launched more than once per call: the profiler "
+                  f"saw {seen} for {iters} calls")
+        if seen and all(round(n / iters) >= 1 for n in seen.values()):
             break
+        log(f"device_ms: the profiler saw kernels {seen} for {iters} calls; "
+            f"profiling again")
+    else:
+        if kernel is None:
+            ms = time_ms(fn, iters=iters)
+            log(f"device_ms: the profiler lost most launches in all "
+                f"{windows} windows; {ms:.4f} ms per call from CUDA events "
+                f"instead")
+            return ms
+        check(bool(seen), f"the profiler never saw {kernel} in {windows} "
+                          f"windows of {iters} calls")
+        times = [t for ts in by_name.values() for t in ts]
+        log(f"device_ms: the profiler lost most launches of {kernel} in all "
+            f"{windows} windows; the mean of the {len(times)} it kept in the "
+            f"last")
+        return sum(times) / len(times) / 1e3
     per_call = {name: round(len(t) / iters) for name, t in by_name.items()}
-    check(bool(by_name) and all(n >= 1 for n in per_call.values()),
-          f"the profiler saw kernels {dict((k, len(v)) for k, v in by_name.items())} "
-          f"for {iters} calls")
-    if kernel is not None:
-        check(sum(per_call.values()) == 1, f"{kernel} launched "
-                                           f"{per_call} times per call")
     return sum(sum(t) / len(t) * per_call[name]
                for name, t in by_name.items()) / 1e3
 
@@ -456,6 +503,14 @@ GDINO_BOX_MAX = 0.02
 GDINO_QUERY_OVERLAP_MIN = 0.9
 FOCAL_E2E, H_E2E, W_E2E = 200.0, 240, 320     # tests/test_neural_e2e.py
 KEYWORDS = ["object", "floor", "ground"]
+# RAM: the official tag list's length; phase 7 grounds the first
+# RAM_MAX_KEYWORDS tags of a frame; phase 8 holds the tag probabilities of
+# the card (bf16) to the CPU (fp32) within RAM_PROB_MAX (absolute; set before
+# the first run on the card: random-weight logits are O(1), a bf16 error
+# near 1e-2 moves a sigmoid by at most a quarter of that)
+RAM_TAGS = 4585
+RAM_MAX_KEYWORDS = 3
+RAM_PROB_MAX = 0.05
 
 
 def write_vocab(directory: str) -> str:
@@ -470,6 +525,36 @@ def write_vocab(directory: str) -> str:
     with open(path, "w") as f:
         f.write("\n".join(vocab + KEYWORDS) + "\n")
     return path
+
+
+def write_tag_list(directory: str) -> str:
+    """A RAM tag list of RAM_TAGS lines, tag0 ... tag4584 (the official
+    ram_tag_list.txt's length)."""
+    path = f"{directory}/ram_tag_list.txt"
+    with open(path, "w") as f:
+        f.write("\n".join(f"tag{i}" for i in range(RAM_TAGS)) + "\n")
+    return path
+
+
+def cap_keywords(cascade, cap: int = RAM_MAX_KEYWORDS) -> list:
+    """Makes the cascade ground only the first `cap` tags of each frame (RAM
+    still tags every frame); returns the list that records RAM's number of
+    tags per frame (0 where the cascade fell back to "object")."""
+    counts = []
+    inner = cascade.tagger
+
+    def kept(tags):
+        counts.append(0 if tags == ["object"] else len(tags))
+        return tags[:cap]
+
+    def tagger(img):
+        return kept(inner(img))
+
+    tagger.tag_batch = lambda frames: [kept(t)
+                                       for t in inner.tag_batch(frames)]
+    tagger.ram = inner.ram
+    cascade.tagger = tagger
+    return counts
 
 
 def bound(bytes_moved: float, flops: float, flop_rate: float):
@@ -654,11 +739,19 @@ def phase_cascade(workdir, frames, poses):
     from instance_based_loc_tpu_torch.ops import msda_gather, sam_attention
     t0 = time.perf_counter()
     cascade = build_cascade_detector(
-        gdino_vocab=write_vocab(workdir), random_init=True,
-        sam_cfg=SamConfig(), gdino_cfg=GDinoConfig(),
+        gdino_vocab=write_vocab(workdir), ram_tag_list=write_tag_list(workdir),
+        random_init=True, sam_cfg=SamConfig(), gdino_cfg=GDinoConfig(),
         compute_dtype="bfloat16", device="cuda")
-    seg, gd = cascade.segmenter, cascade.grounder
-    scfg, gcfg = seg.model.cfg, gd.model.cfg
+    seg, gd, ram = cascade.segmenter, cascade.grounder, cascade.tagger.ram
+    scfg, gcfg, rcfg = seg.model.cfg, gd.model.cfg, ram.model.cfg
+    rb = rcfg.backbone
+    check((rb.embed_dim, rb.depths, rb.num_heads, rb.window, rb.img_size,
+           rb.adapt_window, rcfg.num_tags, rcfg.layers, rcfg.hidden,
+           ram.model.fc.weight.dtype)
+          == (192, (2, 2, 18, 2), (6, 12, 24, 48), 12, 384, True, RAM_TAGS,
+              2, 768, torch.bfloat16),
+          f"RAM is not the bf16 Swin-L/384 tagger of {RAM_TAGS} tags: {rcfg}")
+    tag_counts = cap_keywords(cascade)
     check((scfg.encoder_dim, scfg.encoder_depth, scfg.encoder_heads,
            scfg.img_size) == (1280, 32, 16, 1024), f"SAM is not SAM-H: {scfg}")
     check((gcfg.backbone.embed_dim, gcfg.backbone.depths, gcfg.backbone.window,
@@ -666,8 +759,9 @@ def phase_cascade(workdir, frames, poses):
            gcfg.decoder_layers, gcfg.img_size)
           == (128, (2, 2, 18, 2), 12, 12, 900, 6, 6, 800),
           f"GroundingDINO is not the deployment config: {gcfg}")
-    log(f"cascade: GroundingDINO (Swin-B, BERT-base) and SAM-H built with "
-        f"random weights in {time.perf_counter() - t0:.1f} s")
+    log(f"cascade: RAM (Swin-L/384, {RAM_TAGS} tags), GroundingDINO "
+        f"(Swin-B, BERT-base) and SAM-H built with random weights in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     detector = RecordingDetector(cascade)
     memory = ObjectMemory(detector=detector,
@@ -677,7 +771,7 @@ def phase_cascade(workdir, frames, poses):
                           log_enabled=False, device="cuda")
     # the main path: every count from zero just before, read just after
     sam_attention.launches = msda_gather.launches = 0
-    seg.encodes = gd.forwards = 0
+    seg.encodes = gd.forwards = ram.forwards = 0
     t1 = time.perf_counter()
     for i in (0, 2):
         rgb, depth, _ = frames[i]
@@ -693,7 +787,7 @@ def phase_cascade(workdir, frames, poses):
     torch.cuda.synchronize()
     query_ms = (time.perf_counter() - t2) * 1e3
     sam_launches, msda_launches = sam_attention.launches, msda_gather.launches
-    encodes, forwards = seg.encodes, gd.forwards
+    encodes, forwards, tagged = seg.encodes, gd.forwards, ram.forwards
 
     for view, phrases in zip((0, 2, 1), detector.frames):
         log(f"cascade: view {view}: {len(phrases)} detections "
@@ -710,6 +804,12 @@ def phase_cascade(workdir, frames, poses):
         f"image encodes ({n_global} global blocks); msda_gather launches "
         f"{msda_launches} over {forwards} GroundingDINO forwards "
         f"({n_deform} levels x deformable layers)")
+    log(f"cascade: RAM tagged {tagged} frames: {tag_counts} of "
+        f"{RAM_TAGS} tags above the 0.68 threshold; the first "
+        f"{RAM_MAX_KEYWORDS} of each grounded")
+    check(tagged == len(detector.frames) == 3,
+          f"cascade: RAM ran {tagged} times for {len(detector.frames)} "
+          f"frames")
     check(encodes > 0 and sam_launches == n_global * encodes,
           f"cascade: {sam_launches} SAM kernel launches for {encodes} encodes")
     check(forwards > 0 and msda_launches == n_deform * forwards,
@@ -720,6 +820,7 @@ def phase_cascade(workdir, frames, poses):
           f"cascade: pose not finite with a unit quaternion: {est}")
 
     # stage times (after the counted run)
+    ram_ms = time_ms(lambda: ram(frames[0][0]), iters=5, warmup=1)
     raw = torch.as_tensor(frames[0][0], device="cuda")[None]
     gdino_ms = sync_ms(lambda: gd.detect_all(frames[0][0], KEYWORDS))
     with torch.no_grad():
@@ -729,7 +830,9 @@ def phase_cascade(workdir, frames, poses):
         boxes = torch.tensor([[40.0, 60.0, 500.0, 700.0]] * 16,
                              device="cuda")
         decode_ms = sync_ms(lambda: seg.model.decode(emb, boxes))
-    log(f"cascade timing: GroundingDINO forward (detect_all) {gdino_ms:.1f} "
+    log(f"cascade timing: RAM {ram_ms:.1f} ms per frame (CUDA events; "
+        f"preprocessing and the probabilities' copy to the host included), "
+        f"GroundingDINO forward (detect_all) {gdino_ms:.1f} "
         f"ms, SAM encode {encode_ms:.1f} ms, SAM decode of 16 boxes "
         f"{decode_ms:.1f} ms, memory build {build_ms:.1f} ms, query "
         f"{query_ms:.1f} ms")
@@ -741,7 +844,8 @@ def phase_cascade_vs_cpu(workdir, frames):
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from instance_based_loc_tpu_torch.models import gdino as G, sam as S
+    from instance_based_loc_tpu_torch.models import gdino as G, ram as R
+    from instance_based_loc_tpu_torch.models import sam as S
     from instance_based_loc_tpu_torch.models.cascade import cxcywh_to_xyxy
     from instance_based_loc_tpu_torch.models.wordpiece import (
         WordPieceTokenizer)
@@ -830,6 +934,26 @@ def phase_cascade_vs_cpu(workdir, frames):
         f"gate {SAM_EMB_COS_MIN}), mask logits max|diff| "
         f"{(mc.float().cpu() - mr).abs().max().item():.4g} = {mask_rel:.4f} "
         f"of max|ref| {mr.abs().max().item():.4g} (gate {SAM_LOGIT_REL_MAX})")
+    # RAM: Swin-L widths, 1 block per stage, 2 decoder layers, 4585 tags
+    rcfg = R.RamConfig(backbone=dataclasses.replace(R.RAM_SWIN_L,
+                                                    depths=(1, 1, 1, 1)),
+                       num_tags=RAM_TAGS)
+    rcard, rcpu = pair(R.Ram(rcfg), R.init_params, 10,
+                       lambda m, dt: m.to(dt))
+    img = G.device_preprocess(raw, rcfg.backbone.img_size, G.IMAGENET_MEAN,
+                              G.IMAGENET_STD)
+    with torch.no_grad():
+        pc = torch.sigmoid(rcard(img.to(torch.bfloat16)).float()).cpu()
+        pr = torch.sigmoid(rcpu(img.cpu()))
+    ram_err = (pc - pr).abs().max().item()
+    flips = int(((pc > 0.68) != (pr > 0.68)).sum())
+    log(f"cascade_vs_cpu: RAM (Swin-L widths, 1 block per stage, 2 decoder "
+        f"layers, {RAM_TAGS} tags, 384 px) card bf16 vs CPU fp32: tag "
+        f"probabilities max|diff| {ram_err:.4g} (gate {RAM_PROB_MAX}); "
+        f"{int((pr > 0.68).sum())} tags above 0.68 on the CPU, {flips} "
+        f"decided otherwise on the card")
+    check(ram_err <= RAM_PROB_MAX, f"cascade_vs_cpu: RAM probabilities "
+                                   f"{ram_err}")
     check(cos >= SAM_EMB_COS_MIN, f"cascade_vs_cpu: SAM cosine {cos}")
     check(mask_rel <= SAM_LOGIT_REL_MAX,
           f"cascade_vs_cpu: SAM mask logits {mask_rel}")
@@ -1125,23 +1249,25 @@ def phase_cli_cascade(workdir, cascade):
         "--dbscan-eps", "0.1", "--dbscan-min-points", "40",
         "--out-dir", f"{workdir}/c_out", "--testname", "cascade",
         "--quiet"]))
-    seg, gd = cascade.segmenter, cascade.grounder
+    seg, gd, ram = cascade.segmenter, cascade.grounder, cascade.tagger.ram
     # the main path: every count from zero just before, read just after
     sam_attention.launches = msda_gather.launches = 0
-    seg.encodes = gd.forwards = 0
+    seg.encodes = gd.forwards = ram.forwards = 0
     t1 = time.perf_counter()
     with recording_memories() as seen, working_directory(workdir):
         trans, rot = lt.main(args, detector=cascade)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t1
     sam_launches, msda_launches = sam_attention.launches, msda_gather.launches
-    encodes, forwards = seg.encodes, gd.forwards
+    encodes, forwards, tagged = seg.encodes, gd.forwards, ram.forwards
     memory, (pts, msk) = seen[-1]
     log_memory("cli (c) cascade", memory)
     log(f"cli (c) cascade: CLI run {run_s:.1f} s; view 1 translation error "
         f"{trans}, rotation error {rot} (random weights: not gated); "
         f"sam_attention launches {sam_launches} over {encodes} encodes, "
-        f"msda_gather launches {msda_launches} over {forwards} forwards")
+        f"msda_gather launches {msda_launches} over {forwards} forwards, "
+        f"{tagged} RAM forwards")
+    check(tagged > 0, "cli (c): RAM tagged no frame")
     check(encodes > 0 and sam_launches == 4 * encodes,
           f"cli (c): {sam_launches} SAM kernel launches for {encodes} "
           f"encodes")
@@ -1489,6 +1615,183 @@ def phase_dator(workdir, scene_data):
     return launches + cli_launches
 
 
+# phase 12 (a): the JAX CLI test's translation gate (tests/test_clip_loc.py)
+CLIP_LOC_TRANS_MAX = 1.5
+
+
+def write_clip_text_checkpoint(path: str, seed: int = 0) -> None:
+    """A random CLIP text tower at ClipTextConfig()'s width (512 wide, 12
+    layers, 77 tokens) in the HF CLIPTextModelWithProjection layout, as
+    `--clip-text-checkpoint` takes it (the card has no transformers)."""
+    import torch
+    from instance_based_loc_tpu_torch.models.clip_text import ClipTextConfig
+    c = ClipTextConfig()
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(*shape, std):
+        return std * torch.randn(shape, generator=gen)
+
+    e, m = c.hidden_size, c.mlp_dim
+    sd = {"text_model.embeddings.token_embedding.weight":
+          normal(c.vocab_size, e, std=0.02),
+          "text_model.embeddings.position_embedding.weight":
+          normal(c.max_length, e, std=0.01),
+          "text_projection.weight": normal(c.projection_dim, e, std=e ** -0.5)}
+    for name in ("final_layer_norm",) + tuple(
+            f"encoder.layers.{i}.layer_norm{j}"
+            for i in range(c.num_layers) for j in (1, 2)):
+        sd[f"text_model.{name}.weight"] = torch.ones(e)
+        sd[f"text_model.{name}.bias"] = torch.zeros(e)
+    for i in range(c.num_layers):
+        for name, (n_out, n_in) in (
+                ("self_attn.q_proj", (e, e)), ("self_attn.k_proj", (e, e)),
+                ("self_attn.v_proj", (e, e)), ("self_attn.out_proj", (e, e)),
+                ("mlp.fc1", (m, e)), ("mlp.fc2", (e, m))):
+            pre = f"text_model.encoder.layers.{i}.{name}"
+            sd[pre + ".weight"] = normal(n_out, n_in, std=n_in ** -0.5)
+            sd[pre + ".bias"] = torch.zeros(n_out)
+    torch.save(sd, path)
+
+
+@contextlib.contextmanager
+def recording_clip_loc():
+    """Records each clip_loc conversion's ObjectMemory and result, and (ms,
+    RANSAC samples) of each `localize`, the card synchronised."""
+    import torch
+    from instance_based_loc_tpu_torch.memory.clip_loc import (
+        ClipLocObjectMemory as C)
+    seen = {"memories": [], "converted": [], "calls": []}
+    convert, localize = C.__dict__["from_object_memory"], C.localize
+
+    def converting(object_memory, *args, **kwargs):
+        seen["memories"].append(object_memory)
+        seen["converted"].append(convert.__func__(object_memory, *args,
+                                                  **kwargs))
+        return seen["converted"][-1]
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = localize(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        seen["calls"].append(((time.perf_counter() - t0) * 1e3,
+                              self.ransac_samples))
+        return out
+    C.from_object_memory, C.localize = staticmethod(converting), timed
+    try:
+        yield seen
+    finally:
+        C.from_object_memory, C.localize = convert, localize
+
+
+def phase_clip_loc(workdir):
+    """The clip_loc CLI on phase 9 (b)'s TUM dataset, weights-free and with
+    the CLIP embedder and text tower; the ViT kernel at CLIP-B/32's shape."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from instance_based_loc_tpu_torch.cli import clip_loc_trial as ct
+    from instance_based_loc_tpu_torch.cli import localisation_trial as lt
+    from instance_based_loc_tpu_torch.data.synthetic import default_scene
+    from instance_based_loc_tpu_torch.memory import ColorRegionDetector
+    from instance_based_loc_tpu_torch.memory.clip_loc import (
+        ClipLocObjectMemory)
+    from instance_based_loc_tpu_torch.ops import attention
+    t0 = time.perf_counter()
+    scene = default_scene(num_objects=9, seed=3)
+
+    def run(tag, *flags):
+        args = lt.apply_convention_defaults(ct.make_clip_loc_parser()
+                                            .parse_args([
+            "--convention", "tum", "--data-path", f"{workdir}/tum",
+            "--detector", "depth", "-e", "6", "7", "8", "--consider-floor",
+            "--min-points", "200", "--no-outlier-removal",
+            "--focal-length", "525", "--sampling-period", "1",
+            "--downsample-voxel-size", "0.02", "--dbscan-eps", "0.1",
+            "--dbscan-min-points", "40",
+            "--clip-loc-save-path", f"{workdir}/clip_loc_{tag}",
+            "--out-dir", f"{workdir}/clip_out",
+            "--testname", f"tum_clip_loc_{tag}", "--quiet", *flags]))
+        query = ColorRegionDetector(min_area=500,
+                                    floor_colors=[scene.floor_color])
+        t1 = time.perf_counter()
+        with recording_clip_loc() as seen, working_directory(workdir):
+            trans, rot = ct.main(args, query_detector=query)
+        torch.cuda.synchronize()
+        ms = [round(c[0], 1) for c in seen["calls"]]
+        log(f"clip_loc ({tag}): run {time.perf_counter() - t1:.1f} s; views "
+            f"6-8 translation errors {np.round(trans, 4).tolist()}, "
+            f"rotation errors {np.round(rot, 4).tolist()}; localize "
+            f"{ms} ms, RANSAC samples {[c[1] for c in seen['calls']]}")
+        check(len(trans) == 3 and bool(np.all(np.isfinite(trans + rot))),
+              f"clip_loc ({tag}): poses not finite: {trans}, {rot}")
+        return trans, seen["memories"][-1], seen["converted"][-1]
+
+    # (a) weights-free
+    trans, memory, converted = run("color", "--embeddings", "color")
+    check(max(trans) < CLIP_LOC_TRANS_MAX,
+          f"clip_loc (color): translation errors {trans} past "
+          f"{CLIP_LOC_TRANS_MAX} m")
+    loaded = ClipLocObjectMemory.load(f"{workdir}/clip_loc_color",
+                                      log_enabled=False)
+    check(len(loaded) == len(converted) > 0 and all(
+        a.text == b.text and np.array_equal(a.points, b.points)
+        and np.array_equal(a.ellipsoid_lengths, b.ellipsoid_lengths)
+        for a, b in zip(loaded.memory, converted.memory)),
+          "clip_loc (color): the pkl does not read back")
+    log(f"clip_loc (color): memory of {len(memory.memory)} objects -> "
+        f"{len(converted)} clip_loc objects; the pkl reads back")
+
+    # (b) CLIP ViT-B/32 crops against CLIP text embeddings of the names
+    text_ckpt = f"{workdir}/clip_text.bin"
+    write_clip_text_checkpoint(text_ckpt)
+    # the main path: the count from zero just before, read just after
+    attention.launches = 0
+    _, memory, _ = run("clip", "--embeddings", "clip",
+                       "--clip-text-checkpoint", text_ckpt)
+    launches, batches = attention.launches, memory.get_embeddings_func.batches
+    cfg = memory.get_embeddings_func.model.cfg
+    log(f"clip_loc (clip): vit_attention launches {launches} over {batches} "
+        f"crop batches ({cfg.num_layers} per batch expected)")
+    check((cfg.hidden_size, cfg.num_layers, cfg.patch_size, cfg.projection_dim,
+           cfg.dtype) == (768, 12, 32, 512, torch.bfloat16),
+          f"clip_loc (clip): not the full-width bf16 CLIP ViT-B/32: {cfg}")
+    check(batches > 0 and launches == cfg.num_layers * batches,
+          f"clip_loc (clip): {launches} kernel launches for {batches} "
+          f"batches")
+
+    # (c) the kernel at CLIP-B/32's shape: 16 crops, 12 heads, 50 tokens
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shape = (16, 12, cfg.num_patches + 1, cfg.hidden_size // cfg.num_heads)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    out = attention.vit_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = attention.vit_attention_reference(q, k, v).float()
+    diff = (out.float() - ref).abs()
+    err = diff.max().item()
+    atol, rtol = 1e-4, 2 ** -7                 # phase 2's bf16 tolerance
+    log(f"clip_loc: kernel {shape} bf16: max|diff| {err:.3g}, max|ref| "
+        f"{ref.abs().max().item():.3g} (tolerance {atol} + {rtol:.3g} |ref|)")
+    check((diff - atol - rtol * ref.abs()).max().item() <= 0,
+          f"clip_loc: kernel disagrees at {shape}: max|diff| {err}")
+    kernel_ms = device_ms(lambda: attention.vit_attention(q, k, v),
+                          "vit_attention")
+    call_ms = time_ms(lambda: attention.vit_attention(q, k, v))
+    plain_ms = time_ms(lambda: attention.vit_attention_reference(q, k, v))
+    sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    b, h, n, d = shape
+    bound_ms, bound_by = bound(4 * b * h * n * d * 2, 4 * b * h * n * n * d,
+                               H100_BF16_FLOP_PER_S)
+    log(f"clip_loc: kernel timing at {shape} bf16: kernel {kernel_ms:.4f} ms "
+        f"on the device ({call_ms:.4f} ms per back-to-back call), plain "
+        f"{plain_ms:.4f} ms, sdpa {sdpa_ms:.4f} ms on the device, bound "
+        f"{bound_ms * 1e3:.2f} us by {bound_by} "
+        f"({4 * b * h * n * d * 2 / 1e6:.2f} MB, "
+        f"{4 * b * h * n * n * d / 1e9:.3f} GFLOP)")
+    log(f"clip_loc phase done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1523,6 +1826,7 @@ def main() -> int:
         log(f"cli phase done in {time.perf_counter() - t9:.1f} s")
         phase_serve(color_memory, scene_data)
         kernel["launches"] += phase_dator(workdir, scene_data)
+        kernel["launches"] += phase_clip_loc(workdir)
     log(f"all phases passed in {time.perf_counter() - T_START:.1f} s")
 
     print(card, flush=True)

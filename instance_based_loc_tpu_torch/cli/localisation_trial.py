@@ -88,21 +88,21 @@ def build_detector(args):
                 "--detector cascade without any checkpoint degenerates to one "
                 "full-image box per keyword (useless). Pass --ram-checkpoint/"
                 "--gdino-checkpoint/--sam-checkpoint, or use --detector color.")
-        if args.ram_tag_list:
-            raise SystemExit("--ram-tag-list: the RAM tagger is not ported "
-                             "yet (ROADMAP.md queue 1, 'RAM tagger')")
         return build_cascade_detector(ram_checkpoint=args.ram_checkpoint,
                                       gdino_checkpoint=args.gdino_checkpoint,
                                       sam_checkpoint=args.sam_checkpoint,
                                       gdino_vocab=args.gdino_vocab,
+                                      ram_tag_list=args.ram_tag_list,
                                       device=args.device)
     raise ValueError(f"unknown detector {args.detector}")
 
 
-def build_memory(args, memory, dataloader, outlier_cfg):
+def build_memory(args, memory, dataloader, outlier_cfg,
+                 recluster: str = "clustering_and_IoU"):
     """The trial scripts' shared memory-build phase (reference
     tum_localisation_trial.py:97-176): process every environment frame,
-    downsample, optional floor removal, recluster, optional pkl save."""
+    downsample, optional floor removal, recluster (the IoU strategy, or
+    DBSCAN alone for clip_loc), optional pkl save."""
     depth_factor = dataloader.depth_factor
     indices = list(dataloader.environment_indices)
     chunk = max(1, getattr(args, "detect_batch", 1) or 1)
@@ -157,11 +157,18 @@ def build_memory(args, memory, dataloader, outlier_cfg):
     memory.downsample_all_objects(voxel_size=args.downsample_voxel_size)
     if args.remove_floor:
         memory.remove_points_below_floor()
-    memory.recluster_via_clustering_and_IoU(
-        embedding_distance_threshold=args.embedding_distance_threshold,
-        eps=args.dbscan_eps,
-        min_points_per_cluster=args.dbscan_min_points,
-        IoU_threshold=args.iou_threshold)
+    if recluster == "clustering_and_IoU":
+        memory.recluster_via_clustering_and_IoU(
+            embedding_distance_threshold=args.embedding_distance_threshold,
+            eps=args.dbscan_eps,
+            min_points_per_cluster=args.dbscan_min_points,
+            IoU_threshold=args.iou_threshold)
+    elif recluster == "dbscan":
+        memory.recluster_objects_with_dbscan(
+            eps=args.dbscan_eps,
+            min_points_per_cluster=args.dbscan_min_points)
+    else:
+        raise ValueError(f"unknown recluster strategy {recluster!r}")
     if not args.quiet:
         print("\nMemory is")
         print(memory)
@@ -291,8 +298,10 @@ def make_parser():
                    help="ram_tag_list.txt (index-aligned with the checkpoint)")
     p.add_argument("--sam-checkpoint", type=str, default=None)
     p.add_argument("--embedder-checkpoint", type=str, default=None,
-                   help="weights for --embeddings vit/dino/clip (the port's "
-                        "own state dict) or dator (a flat .npz checkpoint)")
+                   help="weights for --embeddings vit/dino/clip (an HF "
+                        ".bin/.pth, a flat .npz of JAX params, or the "
+                        "port's own state dict) or dator (a flat .npz "
+                        "checkpoint)")
     p.add_argument("--focal-length-x", "--focal-length", type=float,
                    default=None, dest="focal_length_x")
     p.add_argument("--focal-length-y", type=float, default=None)

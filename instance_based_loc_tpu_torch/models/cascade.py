@@ -176,27 +176,34 @@ def build_cascade_detector(ram_checkpoint: str | None = None,
                            gdino_checkpoint: str | None = None,
                            sam_checkpoint: str | None = None,
                            gdino_vocab: str | None = None,
+                           ram_tag_list: str | None = None,
                            random_init: bool = False, sam_cfg=None,
-                           gdino_cfg=None, compute_dtype=None,
+                           gdino_cfg=None, ram_cfg=None, compute_dtype=None,
                            device="cuda", **kwargs) -> CascadeDetector:
     """RAM tagger (models/ram.py) -> GroundingDINO grounder
     (models/gdino.py) -> SAM segmenter (models/sam.py).
 
     Checkpoints load where given. `random_init=True` builds GroundingDINO
-    (and SAM, without `sam_checkpoint`) from random weights of `gdino_cfg`
-    and `sam_cfg` (the packages' defaults when None: GroundingDINO's
-    Swin-B / BERT-base / 900 queries, SAM ViT-B). Without a GroundingDINO
-    model the grounder proposes one near-full-image box per keyword.
-    Without a RAM checkpoint the tagger returns no tags and the caption
-    becomes ["object"]; RAM with a checkpoint is not ported yet and raises.
-    `kwargs` go to `CascadeDetector`."""
+    (and SAM, without `sam_checkpoint`, and RAM, without `ram_checkpoint`)
+    from random weights of `gdino_cfg`, `sam_cfg` and `ram_cfg` (the
+    packages' defaults when None: GroundingDINO's Swin-B / BERT-base / 900
+    queries, SAM ViT-B, RAM's Swin-L/384 with one tag per line of
+    `ram_tag_list`). `ram_tag_list` is the tag vocabulary file
+    (`ram_tag_list.txt`). Without a GroundingDINO model the grounder
+    proposes one near-full-image box per keyword; without a RAM model the
+    tagger returns no tags. A frame without tags is grounded with the
+    caption ["object"]. `kwargs` go to `CascadeDetector`."""
     from .gdino import build_gdino_grounder
     from .ram import build_ram_tagger
     from .sam import build_sam_segmenter
 
     segmenter = build_sam_segmenter(sam_checkpoint, cfg=sam_cfg,
                                     compute_dtype=compute_dtype, device=device)
-    ram_tagger = build_ram_tagger(ram_checkpoint)
+    ram_tagger = build_ram_tagger(
+        ram_checkpoint, tag_list_path=ram_tag_list, cfg=ram_cfg,
+        image_size=384 if ram_cfg is None else ram_cfg.backbone.img_size,
+        compute_dtype=compute_dtype,
+        random_init=random_init and ram_checkpoint is None, device=device)
     if gdino_checkpoint or random_init:
         grounder = build_gdino_grounder(
             gdino_checkpoint, vocab_path=gdino_vocab, cfg=gdino_cfg,
@@ -213,4 +220,5 @@ def build_cascade_detector(ram_checkpoint: str | None = None,
 
     tagger.tag_batch = lambda frames: [
         tags if tags else ["object"] for tags in ram_tagger.tag_batch(frames)]
+    tagger.ram = ram_tagger
     return CascadeDetector(tagger, grounder, segmenter, **kwargs)

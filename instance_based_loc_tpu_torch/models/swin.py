@@ -1,4 +1,5 @@
-"""Swin Transformer backbone, GroundingDINO's image tower (counterpart of
+"""Swin Transformer backbone, the image tower of GroundingDINO (Swin-B) and
+of RAM (Swin-L at 384 px) (counterpart of
 `instance_based_loc_tpu/models/swin.py`).
 
 Numerically the Hugging Face `SwinBackbone` the GroundingDINO checkpoints are
@@ -12,7 +13,15 @@ Submodules carry the HF key names (`embeddings.patch_embeddings.projection`,
 `encoder.layers.{s}.blocks.{i}.attention.self.query`, ...), so the backbone
 part of a GroundingDINO `.bin` loads with `load_state_dict` as it is
 (without its `relative_position_index` buffers, which are computed here).
-Activations are NHWC, as in the JAX package.
+RAM's checkpoint holds its Swin in timm's layout (`layers.{s}.blocks.{i}
+.attn.qkv`, `.attn.proj`, `.norm1`, `.mlp.fc1`, ...): `swin_params_from_timm`
+maps it onto these names. Activations are NHWC, as in the JAX package.
+
+`SwinConfig.adapt_window` is timm's rule, which RAM's backbone follows: a
+stage whose map is no larger than the window runs one window of the map's
+size, unshifted (Swin-L/384's last stage: 12x12, window 12, shift 0).
+`SwinTransformer` is the whole backbone with its final LayerNorm and the
+mean-pooled output (JAX `SwinTransformer`'s "pooled").
 """
 
 from __future__ import annotations
@@ -34,6 +43,20 @@ class SwinConfig:
     window: int = 7
     mlp_ratio: float = 4.0
     backbone_norms: bool = False               # per-stage output LayerNorms
+    img_size: int = 224                        # sets the stages' resolutions
+    # timm / HF SwinModel: a stage whose map is at most `window` wide runs
+    # one unshifted window of the map's size (GroundingDINO's SwinBackbone
+    # path keeps the window: False)
+    adapt_window: bool = False
+
+    def stage_window(self, stage: int) -> tuple[int, bool]:
+        """(window, shifted blocks allowed) of a stage at `img_size`."""
+        res = -(-self.img_size // self.patch_size)
+        for _ in range(stage):
+            res = (res + 1) // 2
+        if self.adapt_window and res <= self.window:
+            return res, False
+        return self.window, True
 
 
 def _rel_bias_index(window: int) -> np.ndarray:
@@ -179,9 +202,10 @@ class SwinStage(nn.Module):
         super().__init__()
         c = cfg
         dim = c.embed_dim * 2 ** stage
+        win, shifted = c.stage_window(stage)
         self.blocks = nn.ModuleList(
-            SwinLayer(dim, c.num_heads[stage], c.window,
-                      0 if i % 2 == 0 else c.window // 2, c.mlp_ratio)
+            SwinLayer(dim, c.num_heads[stage], win,
+                      win // 2 if shifted and i % 2 else 0, c.mlp_ratio)
             for i in range(c.depths[stage]))
         self.downsample = (SwinPatchMerging(dim)
                            if stage < len(c.depths) - 1 else None)
@@ -219,7 +243,9 @@ class SwinBackbone(nn.Module):
                 f"stage{s + 1}": nn.LayerNorm(cfg.embed_dim * 2 ** s, eps=1e-5)
                 for s in self.out_stages})
 
-    def forward(self, images):
+    def stages(self, images, last: int):
+        """Yields (stage, its features before downsampling) for stages 0 to
+        `last`; later stages are not run."""
         c = self.cfg
         _, ih, iw, _ = images.shape
         pad_h, pad_w = (-ih) % c.patch_size, (-iw) % c.patch_size
@@ -228,24 +254,49 @@ class SwinBackbone(nn.Module):
         x = self.embeddings.patch_embeddings.projection(
             images.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         x = self.embeddings.norm(x)
-        feats = []
         for s, stage in enumerate(self.encoder.layers):
             for block in stage.blocks:
                 x = block(x)
-            if s in self.out_stages:
-                out = x
-                if c.backbone_norms:
-                    out = self.hidden_states_norms[f"stage{s + 1}"](out)
-                feats.append(out)
-            if s == max(self.out_stages):
-                break                   # later stages feed no output
+            yield s, x
+            if s == last:
+                return
             x = stage.downsample(x)
+
+    def _out(self, s: int, x):
+        if self.cfg.backbone_norms:
+            return self.hidden_states_norms[f"stage{s + 1}"](x)
+        return x
+
+    def forward(self, images):
+        return [self._out(s, x)
+                for s, x in self.stages(images, max(self.out_stages))
+                if s in self.out_stages]
+
+
+class SwinTransformer(SwinBackbone):
+    """The whole backbone (JAX `SwinTransformer`): images (B, H, W, 3) ->
+    {"c2".."c5": each stage's features before downsampling (B, h, w, C_s),
+    "pooled": the mean over the map of the last stage through the final
+    LayerNorm `layernorm` (B, C_final)}."""
+
+    def __init__(self, cfg: SwinConfig):
+        super().__init__(cfg, tuple(range(len(cfg.depths))))
+        self.layernorm = nn.LayerNorm(
+            cfg.embed_dim * 2 ** (len(cfg.depths) - 1), eps=1e-5)
+
+    def forward(self, images):
+        feats = {}
+        for s, x in self.stages(images, len(self.cfg.depths) - 1):
+            feats[f"c{s + 2}"] = self._out(s, x)
+        feats["pooled"] = self.layernorm(x).mean(dim=(1, 2))
         return feats
 
 
-def swin_params_from_jax(p: dict, cfg: SwinConfig, out_stages: tuple) -> dict:
+def swin_params_from_jax(p: dict, cfg: SwinConfig, out_stages: tuple,
+                         pooled: bool = False) -> dict:
     """The JAX `SwinTransformer`'s tree as this backbone's state dict (the
-    JAX module's fused qkv splits into query, key, value)."""
+    JAX module's fused qkv splits into query, key, value); `pooled` takes
+    its `final_norm` too, for `SwinTransformer`."""
     def t(x):
         return torch.as_tensor(np.array(x, dtype=np.float32))
 
@@ -290,4 +341,52 @@ def swin_params_from_jax(p: dict, cfg: SwinConfig, out_stages: tuple) -> dict:
     if cfg.backbone_norms:
         for s in out_stages:
             ln(f"hidden_states_norms.stage{s + 1}", p[f"outnorm{s}"])
+    if pooled:
+        ln("layernorm", p["final_norm"])
     return sd
+
+
+def swin_params_from_timm(sd: dict, cfg: SwinConfig, prefix: str = "") -> dict:
+    """A timm-layout Swin state dict (RAM's `visual_encoder.*`, under
+    `prefix`) as `SwinTransformer`'s fp32 state dict: the fused `attn.qkv`
+    splits into query, key and value (rows q, k, v); the timm model has no
+    final LayerNorm of its own here (RAM's `norm` is the tagger's
+    `vis_norm`), so `layernorm` is the identity. timm's
+    `relative_position_index` and `attn_mask` buffers are computed here."""
+    def t(name):
+        v = sd[prefix + name]
+        if isinstance(v, torch.Tensor):
+            return v.detach().to("cpu", torch.float32).clone()
+        return torch.as_tensor(np.asarray(v, dtype=np.float32))
+
+    out = {}
+
+    def copy(dst, src, parts=("weight", "bias")):
+        for part in parts:
+            out[f"{dst}.{part}"] = t(f"{src}.{part}")
+
+    copy("embeddings.patch_embeddings.projection", "patch_embed.proj")
+    copy("embeddings.norm", "patch_embed.norm")
+    for s, depth in enumerate(cfg.depths):
+        for i in range(depth):
+            src, dst = f"layers.{s}.blocks.{i}.", f"encoder.layers.{s}.blocks.{i}."
+            copy(dst + "layernorm_before", src + "norm1")
+            copy(dst + "layernorm_after", src + "norm2")
+            for part in ("weight", "bias"):
+                qkv = t(f"{src}attn.qkv.{part}").chunk(3)
+                for name, val in zip(("query", "key", "value"), qkv):
+                    out[f"{dst}attention.self.{name}.{part}"] = val.clone()
+            out[dst + "attention.self.relative_position_bias_table"] = t(
+                src + "attn.relative_position_bias_table")
+            copy(dst + "attention.output.dense", src + "attn.proj")
+            copy(dst + "intermediate.dense", src + "mlp.fc1")
+            copy(dst + "output.dense", src + "mlp.fc2")
+        if s < len(cfg.depths) - 1:
+            copy(f"encoder.layers.{s}.downsample.norm",
+                 f"layers.{s}.downsample.norm")
+            copy(f"encoder.layers.{s}.downsample.reduction",
+                 f"layers.{s}.downsample.reduction", ("weight",))
+    final = cfg.embed_dim * 2 ** (len(cfg.depths) - 1)
+    out["layernorm.weight"] = torch.ones(final)
+    out["layernorm.bias"] = torch.zeros(final)
+    return out

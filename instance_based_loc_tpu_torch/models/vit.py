@@ -15,7 +15,10 @@ attention of every block is `ops.attention.vit_attention`: the CUDA kernel
 for a tensor on the card, its plain version on the CPU.
 
 Images are NHWC, as in the JAX package. `params_from_jax` turns the JAX
-module's parameter tree (numpy arrays) into this module's state dict.
+module's parameter tree (numpy arrays) into this module's state dict;
+`port_hf_vit_params`, `port_hf_dinov2_params` and
+`port_hf_clip_vision_params` do the same for the HF `transformers` state
+dicts the reference loads (ViTModel, Dinov2Model, CLIPVisionModel).
 """
 
 from __future__ import annotations
@@ -239,3 +242,115 @@ def params_from_jax(flax_params: dict, cfg: ViTConfig) -> dict[str, torch.Tensor
     if cfg.projection_dim is not None:
         dense("proj", p["proj"], e)
     return sd
+
+
+
+# ---------------------------------------------------------------------------
+# HF torch checkpoints -> this module's state dict
+# ---------------------------------------------------------------------------
+
+def _f32(x) -> torch.Tensor:
+    """A checkpoint value (a torch tensor of any float type, or numpy) as
+    an fp32 CPU tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32).clone()
+    return torch.as_tensor(np.asarray(x, dtype=np.float32))
+
+
+def _hf_blocks(sd: dict, cfg: ViTConfig, names: dict, layers: str) -> dict:
+    """The blocks of an HF encoder: q, k and v Linears stacked into one
+    `qkv` Linear (rows q, then k, then v: the JAX package's `_split_qkv`
+    order), every other Linear and LayerNorm taken as it is. `names` maps
+    this module's leaf names to the HF ones under `{layers}.{i}.`."""
+    out = {}
+    for i in range(cfg.num_layers):
+        src, dst = f"{layers}.{i}.", f"blocks.{i}."
+        for part in ("weight", "bias"):
+            out[f"{dst}attn.qkv.{part}"] = torch.cat(
+                [_f32(sd[f"{src}{names[n]}.{part}"]) for n in "qkv"])
+            for leaf in ("ln1", "ln2", "attn.out", "mlp.fc1", "mlp.fc2"):
+                out[f"{dst}{leaf}.{part}"] = _f32(
+                    sd[f"{src}{names[leaf]}.{part}"])
+        if cfg.use_layerscale:
+            for j in (1, 2):
+                out[f"{dst}layerscale{j}"] = _f32(
+                    sd[f"{src}{names[f'layerscale{j}']}"])
+    return out
+
+
+_HF_VIT_NAMES = {
+    "q": "attention.attention.query", "k": "attention.attention.key",
+    "v": "attention.attention.value", "attn.out": "attention.output.dense",
+    "ln1": "layernorm_before", "ln2": "layernorm_after",
+    "mlp.fc1": "intermediate.dense", "mlp.fc2": "output.dense",
+}
+_HF_DINOV2_NAMES = dict(_HF_VIT_NAMES, ln1="norm1", ln2="norm2",
+                        layerscale1="layer_scale1.lambda1",
+                        layerscale2="layer_scale2.lambda1",
+                        **{"mlp.fc1": "mlp.fc1", "mlp.fc2": "mlp.fc2"})
+_HF_CLIP_NAMES = {
+    "q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+    "attn.out": "self_attn.out_proj", "ln1": "layer_norm1",
+    "ln2": "layer_norm2", "mlp.fc1": "mlp.fc1", "mlp.fc2": "mlp.fc2",
+}
+
+
+def _hf_vit_like(sd: dict, cfg: ViTConfig, names: dict) -> dict:
+    out = {
+        "patch_embed.weight": _f32(
+            sd["embeddings.patch_embeddings.projection.weight"]),
+        "patch_embed.bias": _f32(
+            sd["embeddings.patch_embeddings.projection.bias"]),
+        "cls_token": _f32(sd["embeddings.cls_token"]),
+        "pos_embed": _f32(sd["embeddings.position_embeddings"]),
+        "ln_final.weight": _f32(sd["layernorm.weight"]),
+        "ln_final.bias": _f32(sd["layernorm.bias"]),
+    }
+    out.update(_hf_blocks(sd, cfg, names, "encoder.layer"))
+    return out
+
+
+def port_hf_vit_params(state_dict: dict, cfg: ViTConfig) -> dict:
+    """A `transformers.ViTModel` state dict (no `vit.` prefix) as this
+    module's fp32 state dict (JAX `port_hf_vit_params`); the pooler is
+    dropped."""
+    return _hf_vit_like(state_dict, cfg, _HF_VIT_NAMES)
+
+
+def port_hf_dinov2_params(state_dict: dict, cfg: ViTConfig) -> dict:
+    """A `transformers.Dinov2Model` state dict as this module's fp32 state
+    dict (JAX `port_hf_dinov2_params`); the mask token is dropped."""
+    return _hf_vit_like(state_dict, cfg, _HF_DINOV2_NAMES)
+
+
+def port_hf_clip_vision_params(state_dict: dict, cfg: ViTConfig,
+                               visual_projection=None) -> dict:
+    """A `transformers.CLIPVisionModel` state dict (keys with or without
+    `vision_model.`) as this module's fp32 state dict (JAX
+    `port_hf_clip_vision_params`): no patch bias (zeros), `pre_layrnorm` ->
+    `ln_pre`, `post_layernorm` -> `ln_final`. The projection is
+    `visual_projection` if given, else the state dict's
+    `visual_projection.weight` (a CLIPModel or
+    CLIPVisionModelWithProjection file), else zeros, as in the JAX
+    package, which never reads the file's projection."""
+    sd = {k.removeprefix("vision_model."): v for k, v in state_dict.items()}
+    e = cfg.hidden_size
+    out = {
+        "patch_embed.weight": _f32(sd["embeddings.patch_embedding.weight"]),
+        "patch_embed.bias": _f32(sd.get("embeddings.patch_embedding.bias",
+                                        np.zeros(e, np.float32))),
+        "cls_token": _f32(sd["embeddings.class_embedding"]).reshape(1, 1, e),
+        "pos_embed": _f32(sd["embeddings.position_embedding.weight"])[None],
+        "ln_pre.weight": _f32(sd["pre_layrnorm.weight"]),
+        "ln_pre.bias": _f32(sd["pre_layrnorm.bias"]),
+        "ln_final.weight": _f32(sd["post_layernorm.weight"]),
+        "ln_final.bias": _f32(sd["post_layernorm.bias"]),
+    }
+    out.update(_hf_blocks(sd, cfg, _HF_CLIP_NAMES, "encoder.layers"))
+    if cfg.projection_dim is not None:
+        if visual_projection is None:
+            visual_projection = sd.get(
+                "visual_projection.weight",
+                np.zeros((cfg.projection_dim, e), np.float32))
+        out["proj.weight"] = _f32(visual_projection)
+    return out

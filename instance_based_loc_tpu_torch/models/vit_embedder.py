@@ -17,19 +17,25 @@ a pixel one uint8 step the other way: |diff| <= 2/255 / std after
 normalisation.
 
 Without a checkpoint the trunk gets random weights from seed 0
-(`init_params`), the same on every build.
-`checkpoint_path` loads a state dict of this package's ViT (`torch.save` of
-`model.state_dict()`).
+(`init_params`), the same on every build. `load_params` reads what the JAX
+package's loader reads: an HF torch state dict (`.bin` / `.pth` of
+ViTModel, Dinov2Model or CLIPVisionModel), or a flat `.npz` whose `params`
+entry is the pickled JAX parameter tree with numpy leaves; it also takes a
+state dict of this package's ViT (`torch.save` of `model.state_dict()`).
 """
 
 from __future__ import annotations
+
+import pickle
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from .vit import VARIANTS, ViT, init_params
+from .vit import (VARIANTS, ViT, ViTConfig, init_params, params_from_jax,
+                  port_hf_clip_vision_params, port_hf_dinov2_params,
+                  port_hf_vit_params)
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -79,6 +85,61 @@ def preprocess_crop(crop, variant: str, size: int = 224,
     return (x - mean) / std
 
 
+_PICKLE_MODULES = ("numpy", "builtins", "collections", "_codecs")
+
+
+class _NumpyTreeUnpickler(pickle.Unpickler):
+    """Unpickles dicts, lists and numpy arrays only: a tree pickled with jax
+    or flax objects (a FrozenDict, jax arrays) needs those packages, which
+    the card does not have, and no other class is unpickled at all."""
+
+    def find_class(self, module, name):
+        if module.split(".")[0] not in _PICKLE_MODULES:
+            raise ValueError(
+                f"the pickled parameter tree holds a {module}.{name} object; "
+                f"only dicts of numpy arrays load without jax and flax "
+                f"(re-save the tree with numpy leaves, e.g. "
+                f"jax.tree_util.tree_map(np.asarray, flax.core.unfreeze(p)))")
+        return super().find_class(module, name)
+
+
+def read_npz_tree(path: str, entry: str = "params"):
+    """The tree pickled into entry `entry` of a flat `.npz` (the JAX
+    package's format for ported ViT params and LoRA adapters)."""
+    import io
+    with np.load(path, allow_pickle=False) as data:
+        raw = data[entry].tobytes()
+    try:
+        return _NumpyTreeUnpickler(io.BytesIO(raw)).load()
+    except ValueError as err:
+        raise ValueError(f"{path}: {err}") from None
+
+
+_HF_PORTERS = {"vit": port_hf_vit_params, "dinov2": port_hf_dinov2_params,
+               "clip": port_hf_clip_vision_params}
+
+
+def load_params(model: ViT, cfg: ViTConfig, variant: str,
+                checkpoint_path: str | None) -> ViT:
+    """Weights into `model`, in place (JAX `vit_embedder.load_params`):
+    seeded random weights without a checkpoint; a `.npz` holds the JAX
+    parameter tree (`params_from_jax`); any other file is a torch state
+    dict, this module's own or an HF one, ported for `variant`."""
+    if checkpoint_path is None:
+        device = model.pos_embed.device
+        init_params(model, torch.Generator(device=device).manual_seed(0))
+        return model
+    if checkpoint_path.endswith(".npz"):
+        sd = params_from_jax(read_npz_tree(checkpoint_path), cfg)
+    else:
+        sd = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
+        if "patch_embed.weight" not in sd:
+            key = "dinov2" if variant == "dino" else variant
+            sd = _HF_PORTERS[key](sd, cfg)
+    model.load_state_dict(sd)
+    return model
+
+
 def build_vit_embedder(variant: str = "vit", checkpoint_path: str | None = None,
                        l2_normalize: bool | None = None,
                        max_crops: int = MAX_CROPS, device="cuda", cfg=None):
@@ -91,12 +152,7 @@ def build_vit_embedder(variant: str = "vit", checkpoint_path: str | None = None,
     dev = resolve_device(device)
     with torch.device(dev):
         model = ViT(cfg)
-    if checkpoint_path is None:
-        init_params(model, torch.Generator(device=dev).manual_seed(0))
-    else:
-        model.load_state_dict(torch.load(checkpoint_path, map_location=dev,
-                                         weights_only=True))
-    model.eval()
+    load_params(model, cfg, variant, checkpoint_path).eval()
     if l2_normalize is None:
         l2_normalize = key == "clip"   # the reference normalises CLIP only
 

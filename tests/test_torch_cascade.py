@@ -14,7 +14,9 @@
   floor clouds match (atol 1e-4) and both poses are finite with a unit
   quaternion. Poses are not compared: RANSAC draws differ between the two
   packages, and random weights carry no identity;
-* RAM with a checkpoint is not ported: asking for it raises.
+* RAM: a missing checkpoint and the card by default without one raise;
+  without a checkpoint the tagger returns no tags (the port's RAM itself is
+  held against the JAX package in tests/test_torch_ram.py).
 """
 
 import numpy as np
@@ -104,10 +106,16 @@ def test_box_helpers_match_jax():
                                   jcascade.cxcywh_to_xyxy(boxes, 200, 100))
 
 
-def test_ram_with_a_checkpoint_raises():
-    with pytest.raises(NotImplementedError):
-        build_ram_tagger("ram_swin_large_14m.pth")
-    with pytest.raises(NotImplementedError):
+def test_ram_with_a_checkpoint_raises(tmp_path, monkeypatch):
+    """RAM is ported (tests/test_torch_ram.py holds it against the JAX
+    package). What raises now: a checkpoint that is not there, and the
+    random-init tagger on its default device, the card, where there is
+    none. Without either the tagger returns no tags."""
+    with pytest.raises(FileNotFoundError):
+        build_ram_tagger(str(tmp_path / "ram_swin_large_14m.pth"),
+                         device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         build_ram_tagger(random_init=True)
     assert build_ram_tagger()(np.zeros((4, 4, 3), np.uint8)) == []
 

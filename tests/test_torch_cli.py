@@ -17,6 +17,12 @@
   `test_memory_e2e.py::test_localisation_trial_cli_serving_mode`, and
   `--embeddings dator` runs with a tiny npz checkpoint.
 * The flags the port treats differently from the JAX CLI fail loudly.
+* `clip_loc_trial.main` on the 7-view 120x160 TUM dataset of
+  `test_clip_loc.py::test_clip_loc_trial_cli`, with that test's flags and
+  query detector: the held-out view within the JAX test's 1.5 m gate; the
+  report and the clip_loc pkl written, and the pkl read by the JAX package.
+* `localisation_trial --detector cascade --ram-checkpoint ...
+  --ram-tag-list ...` passes both files on to the RAM tagger.
 """
 
 import copy
@@ -298,3 +304,59 @@ def test_default_out_dir_keeps_clear_of_the_jax_reports():
     jax_args = jlt.make_parser().parse_args(["--data-path", "x"])
     assert os.path.normpath(args.out_dir) == os.path.join("out", "torch")
     assert os.path.normpath(jax_args.out_dir) == "out"
+
+
+def test_clip_loc_trial_cli(tmp_path):
+    from instance_based_loc_tpu.memory.clip_loc import (
+        ClipLocObjectMemory as JaxClipLocObjectMemory)
+    from instance_based_loc_tpu_torch.cli import clip_loc_trial
+    scene = default_scene(num_objects=5, seed=3)
+    data = str(tmp_path / "tum")
+    write_tum_dataset(data, scene=scene, n_views=7, height=120, width=160,
+                      focal_length=150.0)
+    args = localisation_trial.apply_convention_defaults(
+        clip_loc_trial.make_clip_loc_parser().parse_args([
+            "--convention", "tum", "--data-path", data,
+            "--embeddings", "color", "--detector", "depth",
+            "-e", "5", "--consider-floor", "--min-points", "150",
+            "--no-outlier-removal", "--focal-length", "150",
+            "--sampling-period", "1",
+            "--downsample-voxel-size", "0.02", "--dbscan-eps", "0.1",
+            "--dbscan-min-points", "40",
+            "--clip-loc-save-path", str(tmp_path / "clipmem"),
+            "--out-dir", str(tmp_path / "out"),
+            "--testname", "cli_smoke", "--quiet", "--device", "cpu"]))
+    query_detector = ColorRegionDetector(min_area=80,
+                                         floor_colors=[scene.floor_color])
+    trans_errors, rot_errors = clip_loc_trial.main(
+        args, query_detector=query_detector)
+    assert len(trans_errors) == 1 and trans_errors[0] < 1.5, trans_errors
+    assert (tmp_path / "out" / "cli_smoke_results.txt").exists()
+    loaded = JaxClipLocObjectMemory.load(str(tmp_path / "clipmem"),
+                                         log_enabled=False)
+    assert len(loaded) >= len(scene.boxes)
+    assert clip_loc_trial.make_clip_loc_parser().parse_args(
+        ["--data-path", "x"]).device == "cuda"
+
+
+def test_ram_tag_list_reaches_the_tagger(tmp_path, monkeypatch):
+    from instance_based_loc_tpu_torch.models import ram, sam
+    seen = {}
+
+    def tagger_builder(checkpoint_path=None, **kwargs):
+        seen.update(kwargs, checkpoint_path=checkpoint_path)
+        tagger = lambda rgb: ["chair"]             # noqa: E731
+        tagger.tag_batch = lambda frames: [["chair"] for _ in frames]
+        return tagger
+
+    monkeypatch.setattr(ram, "build_ram_tagger", tagger_builder)
+    monkeypatch.setattr(sam, "build_sam_segmenter",
+                        lambda *a, **k: (lambda img, boxes: None))
+    args = _args(str(tmp_path / "absent"), tmp_path, "--detector", "cascade",
+                 "--ram-checkpoint", "ram.pth",
+                 "--ram-tag-list", "ram_tag_list.txt")
+    cascade = localisation_trial.build_detector(args)
+    assert seen["checkpoint_path"] == "ram.pth"
+    assert seen["tag_list_path"] == "ram_tag_list.txt"
+    assert seen["device"] == "cpu" and not seen["random_init"]
+    assert cascade.tagger(np.zeros((8, 8, 3), np.uint8)) == ["chair"]
