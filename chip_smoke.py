@@ -123,6 +123,39 @@ progress line and raise on failure:
               (c) the ViT kernel at CLIP-B/32's shape (16, 12, 50, 64) bf16
                   (S = 50, less than one 64-key TMA tile) against its plain
                   version with phase 2's tolerance, timed beside SDPA.
+ 13. dator_train  DATOR training on the card:
+              (a) the ViT attention's autograd Function at the training
+                  shape (128, 12, 129, 64) bf16 (2 towers x 64 crops): the
+                  forward (the kernel) within phase 2's tolerance, dq, dk,
+                  dv from a random upstream gradient within 2e-3 + 2^-7
+                  |ref| of autograd of the plain version; the kernel's
+                  forward, the plain fp32 backward and SDPA's forward and
+                  forward + backward timed on the device (SDPA a yardstick
+                  only; the port never calls it);
+              (b) one training step at full width, 2 blocks per tower,
+                  batch 16, with modality dropout and augmentation, fp32
+                  on the card (the kernel's fp32 path) against fp32 on the
+                  CPU from the same weights and draws: every loss term
+                  within 1e-3 relative, each trainable tensor's update
+                  within 1e-4 of its size, BatchNorm statistics within
+                  1e-5;
+              (c) gen_synth_reid (32 identities, 8 + 2 samples each), then
+                  the dator_train CLI with its defaults (two ViT-B/16
+                  towers at 256x128 in bf16, batch 64 = 16 x 4, LoRA-only,
+                  BNNeck, aux heads, SGD with cosine warmup, device-resident
+                  dataset, seeded random init) for 3 epochs with an eval
+                  every epoch (val split): finite losses, finite rank-1
+                  and mAP for every ablation, 11 kernel launches per
+                  training step and per eval batch; then --resume 3 for a
+                  fourth epoch, and params_latest.npz through
+                  build_dator_embedder on the bench scene's crops;
+              (d) 20 steps on one fixed batch of 64 at full width: the
+                  mean loss of the last 5 below that of the first 5, 11
+                  launches per step; ms per step (CUDA events) and
+                  samples/s, one step's device busy ms, idle share and
+                  largest kernels (torch.profiler), and the step's time
+                  without the frozen weights' gradients (a probe of what
+                  the clip's norm costs).
 
 The last lines are the card's name and power limit, a JSON line describing
 each kernel, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -1792,6 +1825,317 @@ def phase_clip_loc(workdir):
     return launches
 
 
+# phase 13: the attention backward against autograd of the plain version
+# (bf16): |diff| <= 2e-3 + 2^-7 |ref|; the one step card (fp32, the
+# kernel's fp32 path) against the CPU (fp32, plain attention)
+DATOR_GRAD_TOL = (2e-3, 2 ** -7)
+DATOR_STEP_LOSS_REL = 1e-3
+DATOR_STEP_UPDATE_REL = 1e-4
+DATOR_STEP_STATS_TOL = 1e-5
+
+
+def full_width_dator(num_classes, dtype, num_layers=12, **model_kw):
+    """The full-width FourDNet config (two ViT-B/16 towers at 256x128,
+    reduced_dim 128, BNNeck) at `num_layers` (local_feature runs one block
+    fewer) in `dtype`."""
+    from instance_based_loc_tpu_torch.models.dator.fourdnet import (
+        FourDNetConfig)
+    from instance_based_loc_tpu_torch.models.dator.transreid_vit import (
+        TransReIDConfig)
+    return FourDNetConfig(
+        backbone=TransReIDConfig(local_feature=True, num_layers=num_layers,
+                                 dtype=dtype),
+        num_classes=num_classes, dtype=dtype, **model_kw)
+
+
+def device_breakdown(fn, top: int = 8):
+    """fn() once under torch.profiler: the `top` device kernels by total
+    time, as (name, launches, ms)."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total[e.name][0] += 1
+            total[e.name][1] += e.time_range.elapsed_us() / 1e3
+    rows = sorted(((n, c, ms) for n, (c, ms) in total.items()),
+                  key=lambda r: -r[2])
+    return rows[:top]
+
+
+def dator_cli(argv):
+    """Runs the dator_train CLI, echoing and returning its output."""
+    import io
+    from instance_based_loc_tpu_torch.cli import dator_train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = dator_train.main(argv)
+    print(buf.getvalue(), end="", flush=True)
+    return state, buf.getvalue()
+
+
+def phase_dator_train(workdir, scene_data, card):
+    """DATOR training on the card: the attention Function at the training
+    shape, one step against the CPU, the CLI end to end at full width with
+    --resume, and 20 steps on one batch."""
+    import re
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from instance_based_loc_tpu_torch.cli import gen_synth_reid
+    from instance_based_loc_tpu_torch.memory import ColorRegionDetector
+    from instance_based_loc_tpu_torch.models.dator import train
+    from instance_based_loc_tpu_torch.models.dator.data import (
+        PKSampler, scan_instance_dirs)
+    from instance_based_loc_tpu_torch.models.embedders import get_embedder
+    from instance_based_loc_tpu_torch.ops import attention
+    t0 = time.perf_counter()
+
+    # (a) the attention Function at the training shape: 2 towers x 64
+    shape = (128, 12, 129, 64)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = attention.vit_attention(*ins)
+    grads = torch.autograd.grad(out, ins, g)
+    ref_ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = attention.vit_attention_reference(*ref_ins)
+    ref_grads = torch.autograd.grad(ref, ref_ins, g)
+    torch.cuda.synchronize()
+    atol, rtol = 1e-4, 2 ** -7                 # phase 2's bf16 tolerance
+    diff = (out.float() - ref.float()).abs()
+    fwd_err = diff.max().item()
+    check((diff - atol - rtol * ref.float().abs()).max().item() <= 0,
+          f"dator_train: kernel forward disagrees at {shape}: {fwd_err}")
+    gatol, grtol = DATOR_GRAD_TOL
+    for name, a, r in zip("qkv", grads, ref_grads):
+        d = (a.float() - r.float()).abs()
+        log(f"dator_train: d{name} at {shape} bf16: max|diff| "
+            f"{d.max().item():.3g}, max|ref| {r.float().abs().max().item():.3g} "
+            f"(tolerance {gatol} + {grtol:.3g} |ref|)")
+        check((d - gatol - grtol * r.float().abs()).max().item() <= 0,
+              f"dator_train: d{name} disagrees: max|diff| {d.max().item()}")
+    kernel_ms = device_ms(lambda: attention.vit_attention(q, k, v),
+                          "vit_attention")
+    bwd_ms = device_ms(lambda: attention.vit_attention_backward(q, k, v, g))
+    plain_ms = time_ms(lambda: attention.vit_attention_reference(q, k, v))
+    sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    sq, sk, sv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    sdpa_fb_ms = device_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(sq, sk, sv), (sq, sk, sv), g))
+    b, h, s, d = shape
+    bound_ms, bound_by = bound(4 * b * h * s * d * 2, 4 * b * h * s * s * d,
+                               H100_BF16_FLOP_PER_S)
+    log(f"dator_train: at {shape} bf16 ({card}): kernel forward max|diff| "
+        f"{fwd_err:.3g}, {kernel_ms:.4f} ms device (bound {bound_ms * 1e3:.2f} us by "
+        f"{bound_by}), Function backward (plain torch, fp32) {bwd_ms:.4f} ms "
+        f"device, plain forward {plain_ms:.4f} ms; sdpa forward "
+        f"{sdpa_ms:.4f} ms, forward + backward {sdpa_fb_ms:.4f} ms device")
+
+    # (b) one step at full width, 2 blocks per tower, batch 16, fp32: the
+    # card (the kernel's fp32 path) against the CPU (plain attention)
+    # base_lr 100: the first update's rate is 0.01 base = 1.0, so each
+    # update is large against the fp32 spacing of its weights (at the
+    # default 8e-5 an update is ~100 ulps of a weight, and the comparison
+    # would read the rounding of the subtraction)
+    tcfg = train.TrainConfig(augment=True, base_lr=100.0)
+    mcfg = full_width_dator(4, torch.float32, num_layers=3)
+    cpu = train.create_train_state(mcfg, tcfg, seed=0, device="cpu")
+    dev = train.create_train_state(mcfg, tcfg, seed=0, device="cuda")
+    dev.model.load_state_dict(cpu.model.state_dict())
+    before = {n: p.detach().clone() for n, p in
+              cpu.model.state_dict().items()}
+    rng = np.random.default_rng(13)
+    rgb = torch.as_tensor(rng.integers(0, 256, (16, 256, 128, 3))
+                          .astype(np.uint8))
+    depth = torch.as_tensor(rng.integers(0, 65536, (16, 256, 128))
+                            .astype(np.int32))
+    labels = torch.arange(4).repeat_interleave(4)
+    draws = train.make_step_draws(torch.Generator().manual_seed(13), 16,
+                                  True, True)
+    attention.launches = 0
+    m_dev = train.train_step(dev, rgb.cuda(), depth.cuda(), labels.cuda(),
+                             train.StepDraws(draws.modality_p.cuda(),
+                                             train.AugmentDraws(*(
+                                                 x.cuda() for x in
+                                                 draws.augment))))
+    torch.cuda.synchronize()
+    step_launches = attention.launches
+    m_cpu = train.train_step(cpu, rgb, depth, labels, draws)
+    check(step_launches == mcfg.backbone.num_blocks,
+          f"dator_train: {step_launches} kernel launches in a 2-block step")
+    for key_ in m_cpu:
+        a, r = float(m_dev[key_]), float(m_cpu[key_])
+        log(f"dator_train: step {key_}: card {a:.6f}, cpu {r:.6f}")
+        check(abs(a - r) <= DATOR_STEP_LOSS_REL * max(abs(r), 1e-6),
+              f"dator_train: {key_} card {a} vs cpu {r}")
+    worst_stat, rel = 0.0, []
+    dev_state = dev.model.state_dict()
+    for name, value in cpu.model.state_dict().items():
+        got = dev_state[name].float().cpu()
+        if name.endswith((".mean", ".var")):
+            worst_stat = max(worst_stat, (got - value).abs().max().item())
+            continue
+        if name not in dev.trainable:
+            continue
+        scale = (value - before[name]).abs().max().item()
+        err = (got - value).abs().max().item()
+        rel.append((err / max(scale, 1e-30), name, err, scale))
+    rel.sort(reverse=True)
+    worst_update = rel[0][0]
+    log(f"dator_train: one step card vs cpu: worst trainable update "
+        f"difference {worst_update:.3g} of its update's size (gate "
+        f"{DATOR_STEP_UPDATE_REL}), BN statistics max|diff| "
+        f"{worst_stat:.3g} (gate {DATOR_STEP_STATS_TOL}); worst: " + "; ".join(
+            f"{n} {r:.3g} (|diff| {e:.3g}, update {u:.3g})"
+            for r, n, e, u in rel[:6]))
+    check(worst_update <= DATOR_STEP_UPDATE_REL,
+          f"dator_train: updates differ by {worst_update} of their size")
+    check(worst_stat <= DATOR_STEP_STATS_TOL,
+          f"dator_train: BN statistics differ by {worst_stat}")
+    del cpu, dev
+
+    # (c) the CLI end to end at full width: data from gen_synth_reid,
+    # training with the CLI's defaults (bf16, batch 64 = 16 x 4,
+    # lora_only, BNNeck, aux heads, SGD with cosine warmup, device-resident
+    # dataset, seeded random init), an eval every epoch, then --resume
+    reid = f"{workdir}/reid"
+    gen_synth_reid.main(["--out", reid, "--ids", "32", "--train-per-id",
+                         "8", "--val-per-id", "2", "--test-per-id", "0"])
+    out_dir = f"{workdir}/dator_out"
+    # the val split only: each eval decodes and resizes its crops on the
+    # host, which the train split would quadruple
+    opts = [f"data.root={reid}/train", f"data.val_root={reid}/val",
+            f"output_dir={out_dir}", "eval.period=1", "train.gate_epoch=0",
+            "eval.train_split=false"]
+    n_val = len(scan_instance_dirs(f"{reid}/val"))
+    evals_per_epoch = 3 * -(-n_val // 64)
+    attention.launches = 0
+    t1 = time.perf_counter()
+    state, text = dator_cli(opts + ["train.epochs=3"])
+    torch.cuda.synchronize()
+    cli_launches = attention.launches
+    cli_s = time.perf_counter() - t1
+    bb = state.model.cfg.backbone
+    check((bb.hidden_size, bb.num_blocks, bb.img_height, bb.img_width,
+           bb.dtype) == (768, 11, 256, 128, torch.bfloat16),
+          f"dator_train: the CLI did not train the full-width bf16 model: "
+          f"{state.model.cfg}")
+    spe = state.step // 3
+    losses = [float(x) for x in re.findall(r"^epoch \d+: loss=(\S+)", text,
+                                           re.M)]
+    evals = re.findall(r"eval\[\w+/(\w+)\]: rank1=(\S+) .* mAP=(\S+)", text)
+    log(f"dator_train cli: {cli_s:.1f} s, {state.step} steps ({spe} per "
+        f"epoch), losses {losses}, {len(evals)} evals, vit_attention "
+        f"launches {cli_launches}")
+    check(len(losses) == 3 and all(np.isfinite(losses)),
+          f"dator_train cli: epoch losses {losses}")
+    check(len(evals) == 3 * 3 and {a for a, _, _ in evals}
+          == {"zero_rgb", "zero_depth", "both"}
+          and all(np.isfinite(float(r)) and np.isfinite(float(m))
+                  for _, r, m in evals),
+          f"dator_train cli: evals {evals}")
+    expected = bb.num_blocks * (state.step + 3 * evals_per_epoch)
+    check(cli_launches == expected,
+          f"dator_train cli: {cli_launches} kernel launches, expected "
+          f"{expected} (11 per training step and per eval batch)")
+    attention.launches = 0
+    resumed, text = dator_cli(opts + ["train.epochs=4", "--resume", "3"])
+    torch.cuda.synchronize()
+    resume_launches = attention.launches
+    check("resumed from" in text and resumed.step == 4 * spe,
+          f"dator_train cli: --resume 3 ended at step {resumed.step}, "
+          f"expected {4 * spe}")
+    check(resume_launches == bb.num_blocks * (spe + evals_per_epoch),
+          f"dator_train cli: {resume_launches} launches in the resumed "
+          f"epoch")
+    embed = get_embedder("dator", device="cuda",
+                         checkpoint_path=f"{out_dir}/params_latest.npz")
+    _, _, frames, _ = scene_data
+    det = ColorRegionDetector(min_area=500).find(frames[6][0], False)
+    feats = embed(det, full_rgb_image=frames[6][0],
+                  full_depth_image=frames[6][1])
+    check(feats.shape == (len(det), 128) and bool(np.isfinite(feats).all())
+          and float(np.abs(feats).max()) > 0,
+          f"dator_train: params_latest.npz embeddings {feats.shape}")
+    log(f"dator_train: params_latest.npz read by build_dator_embedder "
+        f"({embed.model.cfg.num_classes} classes) embeds {len(det)} crops "
+        f"of bench view 6")
+    del state, resumed, embed
+
+    # (d) it learns: 20 steps on one batch of 64 at full width (bf16);
+    # ms per step and samples/s from CUDA events, busy / idle from the
+    # profiler over one step
+    samples = scan_instance_dirs(f"{reid}/train")
+    sampler = PKSampler(samples, 64, 4)
+    batch = sampler.epoch_batches(0)[0]
+    rgb, depth, pids = sampler.load_batch(batch, quantize=True)
+    rgb, pids = torch.as_tensor(rgb).cuda(), torch.as_tensor(pids).cuda()
+    depth = torch.as_tensor(depth.astype(np.int32)).cuda()
+    tcfg = train.TrainConfig(optimizer="adam", base_lr=1e-3,
+                             warmup_epochs=0, epochs=1, steps_per_epoch=20)
+    mcfg = full_width_dator(len(samples) // 8, torch.bfloat16)
+    state = train.create_train_state(mcfg, tcfg, seed=1, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    step_losses = []
+    attention.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i in range(20):
+        if i == 5:
+            start.record()
+        m = train.train_step(state, rgb, depth, pids,
+                             train.make_step_draws(gen, 64, True, False))
+        step_losses.append(m["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    learn_launches = attention.launches
+    step_ms = start.elapsed_time(end) / 15
+    step_losses = [float(x) for x in step_losses]
+    first, last = np.mean(step_losses[:5]), np.mean(step_losses[-5:])
+    log(f"dator_train: 20 steps on one batch of 64 ({card}): losses "
+        f"{np.round(step_losses, 4).tolist()}; first 5 mean {first:.4f}, "
+        f"last 5 mean {last:.4f}; {step_ms:.2f} ms per step (CUDA events, "
+        f"steps 5-19), {64e3 / step_ms:.1f} samples/s; vit_attention "
+        f"launches {learn_launches}")
+    check(bool(np.isfinite(step_losses).all()) and last < first,
+          f"dator_train: the loss did not fall: {step_losses}")
+    check(learn_launches == 20 * mcfg.backbone.num_blocks,
+          f"dator_train: {learn_launches} launches in 20 steps")
+    def one_step():
+        train.train_step(state, rgb, depth, pids,
+                         train.make_step_draws(gen, 64, True, False))
+
+    wall_ms, busy_ms, host_calls, kernels = profile_chunk(one_step)
+    log(f"dator_train: one step under the profiler ({card}): wall "
+        f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.3f}, {host_calls} launch calls, "
+        f"{kernels} device kernels and copies")
+    log("dator_train: the step's device time by kernel, largest first: "
+        + "; ".join(f"{name[:60]} x{n} {ms:.2f} ms"
+                    for name, n, ms in device_breakdown(one_step)))
+    # a timing probe only: the port's step computes the frozen weights'
+    # gradients, because the clip's norm reads them as the JAX step's does
+    frozen = [p for n, p in state.model.named_parameters()
+              if n not in state.trainable]
+    for p in frozen:
+        p.requires_grad_(False)
+    probe_ms = time_ms(one_step, iters=5, warmup=1)
+    for p in frozen:
+        p.requires_grad_(True)
+    log(f"dator_train: without the frozen weights' gradients a step takes "
+        f"{probe_ms:.2f} ms ({step_ms - probe_ms:.2f} ms less; {card})")
+    log(f"dator_train phase done in {time.perf_counter() - t0:.1f} s")
+    return cli_launches + resume_launches + learn_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1827,6 +2171,7 @@ def main() -> int:
         phase_serve(color_memory, scene_data)
         kernel["launches"] += phase_dator(workdir, scene_data)
         kernel["launches"] += phase_clip_loc(workdir)
+        kernel["launches"] += phase_dator_train(workdir, scene_data, card)
     log(f"all phases passed in {time.perf_counter() - T_START:.1f} s")
 
     print(card, flush=True)

@@ -13,20 +13,30 @@ reference `dator/model/make_model.py:424-843`):
   then a projection, a residual and a LayerNorm;
 * a convolutional hypernet gives a per-patch 2-way softmax gate over the
   modalities, which gates the cross contributions and the final sum;
-* the token mean is the embedding; with `bnneck` a BatchNorm (running
-  statistics, no bias) follows, and a bias-free classifier gives the class
-  scores.
+* the token mean is the embedding; with `bnneck` a BatchNorm (no bias)
+  follows, and a bias-free classifier gives the class scores.
+
+`forward(..., training=True)` is the training graph of the JAX module:
+modality dropout from the explicit draws `modality_p` (p in {0, 2} zeroes
+a sample's RGB, {1, 3} its depth), the stop-gradient of `detach_fusion`
+between the towers and the fusion head, the BNNeck (and the token
+bottleneck of `token_ce`) normalising with the batch's mean and biased
+variance and updating its running statistics as flax does
+(ra = 0.9 ra + 0.1 batch), the auxiliary class heads on the towers' class
+tokens and the per-token classifier of `token_ce`.
 
 Every parameter keeps its flax name and shape (the state-dict key is the
 flax path joined by dots; BatchNorm statistics are buffers), so
-`train.params_from_jax` and the npz loader map one to one. Modality dropout,
-`detach_fusion`, the auxiliary heads and `token_ce` are training-only and
-not ported yet.
+`train.params_from_jax` and the npz loader map one to one. The training
+heads (`aux_norm_*`, `aux_classifier_*`, and with `token_ce`
+`token_bottleneck` / `token_classifier`) are registered after the served
+ones, so a seeded init draws the served weights as before.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -44,8 +54,14 @@ class FourDNetConfig:
     num_classes: int = 100
     deform_m: int = 8
     deform_k: int = 3
+    # training only: per-sample modality dropout p ~ U{0..4}
+    modality_dropout: bool = True
     # BNNeck before the classifier (the JAX config explains why)
     bnneck: bool = True
+    # training only: stop the gradient between the towers and the fusion head
+    detach_fusion: bool = False
+    # training only: per-token CE on the fused token map
+    token_ce: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -127,18 +143,45 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax `nn.BatchNorm(use_running_average=True, use_bias=False)`."""
+    """flax `nn.BatchNorm(momentum=0.9, use_bias=False)` over the last axis.
+    Inference normalises with the running statistics; training with the
+    batch's mean and biased variance (flax's E[x²] - E[x]², clipped at 0),
+    and moves the running statistics by ra = 0.9 ra + 0.1 batch (the
+    variance biased too, unlike `torch.nn.BatchNorm1d`)."""
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(dim))
         self.register_buffer("mean", torch.zeros(dim))
         self.register_buffer("var", torch.ones(dim))
 
-    def forward(self, x):
-        return (x - self.mean) * (torch.rsqrt(self.var + self.eps)
-                                  * self.scale)
+    def forward(self, x, training: bool = False):
+        if not training:
+            mean, var = self.mean, self.var
+        else:
+            flat = x.float().reshape(-1, x.shape[-1])
+            mean = flat.mean(dim=0)
+            var = torch.clamp((flat * flat).mean(dim=0) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale)
+
+
+class TrainOutputs(NamedTuple):
+    """FourDNet's training forward: class scores (B, C), the served
+    embedding (B, r, after the BNNeck), the auxiliary scores of the towers'
+    class tokens (rgb, depth), the per-token scores (B, N, C) with
+    `token_ce` else None, and the raw embedding before the BNNeck."""
+    cls_score: torch.Tensor
+    embedding: torch.Tensor
+    aux_scores: tuple
+    tok_scores: torch.Tensor | None
+    embedding_raw: torch.Tensor
 
 
 class FourDNet(nn.Module):
@@ -165,17 +208,41 @@ class FourDNet(nn.Module):
         if c.bnneck:
             self.bottleneck = BatchNorm(r)
         self.classifier = Dense(r, c.num_classes, bias=not c.bnneck)
+        # training heads (fourdnet.py of the JAX package explains them)
+        for m in ("rgb", "depth"):
+            self.add_module(f"aux_norm_{m}", Norm(hidden))
+            self.add_module(f"aux_classifier_{m}", Dense(hidden,
+                                                         c.num_classes))
+        if c.token_ce:
+            self.token_bottleneck = BatchNorm(r)
+            self.token_classifier = Dense(r, c.num_classes, bias=False)
 
     def forward(self, rgb, depth, cam_ids=None, view_ids=None,
-                return_cls_tokens: bool = False):
+                return_cls_tokens: bool = False, training: bool = False,
+                modality_p: torch.Tensor | None = None):
         """rgb / depth: (B, H, W, 3) preprocessed. Returns (class scores
         (B, num_classes), embedding (B, reduced_dim)); with
         return_cls_tokens also the towers' class tokens (rgb, depth), each
-        (B, hidden)."""
+        (B, hidden). With training=True it returns `TrainOutputs`;
+        `modality_p` (B,) integers in [0, 5) are then the modality-dropout
+        draws, required when cfg.modality_dropout."""
         c = self.cfg
         b = rgb.shape[0]
+        if training and c.modality_dropout:
+            if modality_p is None:
+                raise ValueError("training with modality_dropout needs the "
+                                 "draws modality_p (B,) in [0, 5)")
+            p = modality_p.reshape(b, 1, 1, 1)
+            rgb = torch.where((p == 0) | (p == 2), torch.zeros_like(rgb), rgb)
+            depth = torch.where((p == 1) | (p == 3), torch.zeros_like(depth),
+                                depth)
         tokens = self.towers(torch.stack([rgb, depth]), cam_ids, view_ids)
         rgb_tokens, depth_tokens = tokens[0], tokens[1]
+        # the fusion head's input; the auxiliary heads read the raw tokens
+        if training and c.detach_fusion:
+            fus_rgb, fus_depth = rgb_tokens.detach(), depth_tokens.detach()
+        else:
+            fus_rgb, fus_depth = rgb_tokens, depth_tokens
 
         def project(tok, m):
             glob = getattr(self, f"project_global_{m}")(tok[:, 0])
@@ -183,8 +250,8 @@ class FourDNet(nn.Module):
             merged = torch.cat([glob[:, None].expand(loc.shape), loc], dim=-1)
             return getattr(self, f"merge_local_global_{m}")(merged)
 
-        rgb_path = project(rgb_tokens, "rgb")                # (B, N, r)
-        depth_path = project(depth_tokens, "depth")
+        rgb_path = project(fus_rgb, "rgb")                   # (B, N, r)
+        depth_path = project(fus_depth, "depth")
 
         # hypernet gate (make_model.py:583-593,703-714)
         h, w = c.grid_hw
@@ -210,10 +277,22 @@ class FourDNet(nn.Module):
 
         final = (depth_path * depth_filter[..., None]
                  + rgb_path * rgb_filter[..., None])
-        embedding = torch.mean(final, dim=-2)                # (B, r)
+        embedding_raw = torch.mean(final, dim=-2)            # (B, r)
+        embedding = embedding_raw
         if c.bnneck:
-            embedding = self.bottleneck(embedding)
+            embedding = self.bottleneck(embedding, training)
         cls_score = self.classifier(embedding)
+        if training:
+            aux = tuple(
+                getattr(self, f"aux_classifier_{m}")(
+                    getattr(self, f"aux_norm_{m}")(tok[:, 0]))
+                for m, tok in (("rgb", rgb_tokens), ("depth", depth_tokens)))
+            tok_scores = None
+            if c.token_ce:
+                tok_scores = self.token_classifier(
+                    self.token_bottleneck(final, training))
+            return TrainOutputs(cls_score, embedding, aux, tok_scores,
+                                embedding_raw)
         if return_cls_tokens:
             return cls_score, embedding, (rgb_tokens[:, 0], depth_tokens[:, 0])
         return cls_score, embedding

@@ -87,7 +87,9 @@ def _towers_view(p: torch.Tensor, dims: int) -> torch.Tensor:
 class Dense(nn.Module):
     """flax `nn.Dense`: kernel (in, out) and bias (out,), after an optional
     leading tower axis (then x is (T, ..., in)). With `dtype` the weights are
-    stored and the product computed in it (flax's `dtype=`); else in fp32."""
+    stored and the product computed in it (flax's `dtype=`); else in fp32.
+    Training keeps fp32 master copies of the weights it updates
+    (`train.create_train_state`); the product still runs in `dtype`."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True,
                  towers: int | None = None, dtype: torch.dtype | None = None):
@@ -101,14 +103,17 @@ class Dense(nn.Module):
                      if bias else None)
 
     def forward(self, x):
-        x = x.to(self.kernel.dtype)
+        dt = self.dtype or torch.float32
+        x = x.to(dt)
+        kernel = self.kernel.to(dt)
+        bias = None if self.bias is None else self.bias.to(dt)
         if self.towers is None:
-            y = x @ self.kernel
-            return y if self.bias is None else y + self.bias
+            y = x @ kernel
+            return y if bias is None else y + bias
         t = x.shape[0]
-        y = torch.bmm(x.reshape(t, -1, x.shape[-1]), self.kernel)
+        y = torch.bmm(x.reshape(t, -1, x.shape[-1]), kernel)
         y = y.reshape(x.shape[:-1] + (y.shape[-1],))
-        return y if self.bias is None else y + _towers_view(self.bias, y.dim())
+        return y if bias is None else y + _towers_view(bias, y.dim())
 
 
 class Norm(nn.Module):
@@ -216,9 +221,9 @@ class TransReIDViT(nn.Module):
         # the towers' patch embeddings as one grouped convolution
         x = images.to(c.dtype).permute(1, 0, 4, 2, 3)        # (B, T, 3, H, W)
         x = x.reshape(b, t * 3, *images.shape[2:4])
-        w = self.patch_embed.kernel.permute(0, 4, 3, 1, 2).reshape(
-            t * d, 3, c.patch_size, c.patch_size)
-        x = F.conv2d(x, w, self.patch_embed.bias.reshape(-1),
+        w = self.patch_embed.kernel.to(c.dtype).permute(0, 4, 3, 1, 2)
+        w = w.reshape(t * d, 3, c.patch_size, c.patch_size)
+        x = F.conv2d(x, w, self.patch_embed.bias.to(c.dtype).reshape(-1),
                      stride=c.stride_size, groups=t)          # (B, T*D, ny, nx)
         x = x.reshape(b, t, d, -1).permute(1, 0, 3, 2)        # (T, B, N, D)
         cls = self.cls_token.expand(t, b, 1, d).to(c.dtype)

@@ -8,6 +8,14 @@ Counterpart of `instance_based_loc_tpu/ops/pallas/attention.py`
 the CPU. For a CUDA tensor it launches the kernel or raises. `launches`
 counts the kernel's launches, so a run can show that its path went through
 the kernel.
+
+Training differentiates through it: when an input requires a gradient,
+`vit_attention` runs as `VitAttentionFunction`, whose forward is the same
+call (the kernel on the card) and whose backward recomputes
+P = softmax(q kᵀ / √D) in fp32 from the saved q, k and v with plain torch
+ops. The JAX package has no backward kernel either: its DATOR towers
+compute attention as einsums and XLA differentiates them, so this backward
+is the counterpart of that autodiff, not of a TPU kernel.
 """
 
 from __future__ import annotations
@@ -63,13 +71,63 @@ def vit_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def vit_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, grad_out: torch.Tensor,
+                           valid_len: int | None = None):
+    """(dq, dk, dv) of `vit_attention` for the upstream gradient
+    `grad_out`, in fp32 from P recomputed in fp32, returned in the input
+    type. Keys at or past `valid_len` have P = 0 in every row, so their dk
+    and dv are exactly zero."""
+    s, d = q.shape[-2], q.shape[-1]
+    scale = 1.0 / d ** 0.5
+    qf, kf, vf, go = q.float(), k.float(), v.float(), grad_out.float()
+    scores = torch.einsum("bhqd,bhkd->bhqk", qf * scale, kf)
+    if valid_len is not None:
+        keep = torch.arange(s, device=q.device) < valid_len
+        scores = scores.masked_fill(~keep, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, go)
+    dp = torch.einsum("bhqd,bhkd->bhqk", go, vf)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class VitAttentionFunction(torch.autograd.Function):
+    """`vit_attention` with a gradient: the forward is the kernel on the
+    card (the plain version on the CPU), the backward
+    `vit_attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.valid_len = valid_len
+        return _attention(q, k, v, valid_len)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = vit_attention_backward(q, k, v, grad_out, ctx.valid_len)
+        return dq, dk, dv, None
+
+
 def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   valid_len: int | None = None) -> torch.Tensor:
     """softmax(q kᵀ / √D, keys < valid_len) v for q, k, v of shape
     (B, H, S, D); fp32 scores and sums, output in the input type.
+    Differentiable: with an input that requires a gradient (and gradients
+    on) it runs as `VitAttentionFunction`.
 
     Query rows at or past `valid_len` give rows the caller discards."""
-    global launches
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return VitAttentionFunction.apply(q, k, v, valid_len)
+    return _attention(q, k, v, valid_len)
+
+
+def _check(q, k, v, valid_len) -> int:
+    """The checks every device shares; returns the valid key count."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one (B, H, S, D) shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -78,10 +136,18 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v must share one dtype")
     if not q.device == k.device == v.device:
         raise ValueError("q, k and v must lie on one device")
-    b, h, s, d = q.shape
+    s = q.shape[2]
     valid = s if valid_len is None else int(valid_len)
     if not 1 <= valid <= s:
         raise ValueError(f"valid_len must lie in [1, {s}]; got {valid}")
+    return valid
+
+
+def _attention(q, k, v, valid_len):
+    """The forward: the plain version for CPU tensors, else the kernel."""
+    global launches
+    valid = _check(q, k, v, valid_len)
+    b, h, s, d = q.shape
     if q.device.type == "cpu":
         return vit_attention_reference(q, k, v, valid_len)
     if q.device.type != "cuda":

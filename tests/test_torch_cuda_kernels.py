@@ -28,6 +28,13 @@ they are held against the plain version on the same bf16-rounded q, k, v.
 MSDA gather: atol 1e-5 (16 fp32 products of the same values summed in
 another order; outputs are a few units in size).
 
+The ViT attention's gradient (`VitAttentionFunction`: the kernel forward,
+a plain fp32 backward): dq, dk, dv against autograd of the plain version,
+bf16 |diff| <= 2e-3 + 2^-7 |ref| (both round fp32 gradients to bf16 from
+inputs the forward rounded alike), fp32 1e-5; one DATOR training step on
+the card (fp32, the kernel's fp32 path, hidden 64) launches the kernel
+once per tower block and gives the CPU step's loss within 1e-4 relative.
+
 The query program's CUDA-graph replay (`ops/query_graph.py`): on a small
 scene, every `localise_many` result of the replay equals the eager run's
 bit for bit for the same seeds, and a configuration that cannot be captured
@@ -85,6 +92,72 @@ def test_cuda_kernel_matches_plain_version(shape, dtype, valid_len, tol):
     torch.testing.assert_close(out.float()[:, :, :rows],
                                ref.float()[:, :, :rows], atol=tol[0],
                                rtol=tol[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,valid_len,tol", [
+    ((128, 12, 129, 64), torch.bfloat16, None, (2e-3, 2 ** -7)),
+    ((4, 12, 129, 64), torch.bfloat16, 100, (2e-3, 2 ** -7)),
+    ((2, 3, 70, 32), torch.float32, 33, FP32_TOL),
+])
+def test_attention_gradient_on_the_card(shape, dtype, valid_len, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                  for _ in range(4))
+    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = attention.launches
+    out = attention.vit_attention(*ins, valid_len=valid_len)
+    grads = torch.autograd.grad(out, ins, g)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = attention.vit_attention_reference(*refs, valid_len=valid_len)
+    for a, r in zip(grads, torch.autograd.grad(ref, refs, g)):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), r.float(), atol=tol[0],
+                                   rtol=tol[1])
+
+
+@pytest.mark.gpu
+def test_dator_train_step_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import numpy as np
+    from instance_based_loc_tpu_torch.models.dator import train
+    from instance_based_loc_tpu_torch.models.dator.fourdnet import (
+        FourDNetConfig)
+    from instance_based_loc_tpu_torch.models.dator.transreid_vit import (
+        TransReIDConfig)
+    cfg = FourDNetConfig(backbone=TransReIDConfig(
+        img_height=32, img_width=16, patch_size=8, stride_size=8,
+        hidden_size=64, num_layers=3, num_heads=4, local_feature=True,
+        dtype=torch.float32), reduced_dim=16, num_classes=4,
+        dtype=torch.float32)
+    tcfg = train.TrainConfig(augment=True)
+    cpu = train.create_train_state(cfg, tcfg, device="cpu")
+    card = train.create_train_state(cfg, tcfg, device="cuda")
+    card.model.load_state_dict(cpu.model.state_dict())
+    rng = np.random.default_rng(0)
+    rgb = torch.as_tensor(rng.integers(0, 256, (8, 32, 16, 3))
+                          .astype(np.uint8))
+    depth = torch.as_tensor(rng.integers(0, 65536, (8, 32, 16))
+                            .astype(np.int32))
+    labels = torch.arange(4).repeat_interleave(2)
+    draws = train.make_step_draws(torch.Generator().manual_seed(0), 8, True,
+                                  True)
+    card_draws = train.StepDraws(draws.modality_p.cuda(), train.AugmentDraws(
+        *(x.cuda() for x in draws.augment)))
+    before = attention.launches
+    m_card = train.train_step(card, rgb.cuda(), depth.cuda(), labels.cuda(),
+                              card_draws)
+    torch.cuda.synchronize()
+    assert attention.launches == before + cfg.backbone.num_blocks
+    m_cpu = train.train_step(cpu, rgb, depth, labels, draws)
+    for key in m_cpu:
+        torch.testing.assert_close(m_card[key].cpu(), m_cpu[key], rtol=1e-4,
+                                   atol=1e-6)
 
 
 @pytest.mark.gpu
