@@ -156,6 +156,35 @@ progress line and raise on failure:
                   largest kernels (torch.profiler), and the step's time
                   without the frozen weights' gradients (a probe of what
                   the clip's norm costs).
+ 14. rest     the library APIs and options of the last slice, each on the
+              card and against the CPU:
+              (a) register_assignments_batched at the main path's sizes:
+                  8 assignments of 1024-point box-surface clouds under 8
+                  known rigid transforms, 4096 RANSAC hypotheses (the same
+                  samples on both devices), 30 ICP iterations, 2048-point
+                  evaluation clouds: every transform within the golden
+                  thresholds (REG_GOLDEN), the card against the CPU within
+                  REG_CARD_CPU_TOL; ms per call;
+              (b) semantic_icp at 1024 points, 6 labels: the transform,
+                  card and CPU;
+              (c) top_assignments at D = 8, M = 128 (56 subsets of 129^3
+                  entries): the card's lists equal the CPU's; ms per call;
+              (d) the port's gen_hm3d_episode (40 frames, 240x320), then
+                  localisation_trial --convention hm3d on it (the colour
+                  detector and embedder): the loader's counts, finite
+                  poses, successes logged beside the JAX CLI's count;
+              (e) SAM-H served on a 768 px canvas from phase 7's SAM-H
+                  state dict (1024 px tables, resized while loading): 4
+                  kernel launches per encode, finite logits; the kernel at
+                  (1, 16, 2304, 80) against its plain version with phase
+                  5's tolerance, timed beside SDPA; a 4-block SAM at 768 px,
+                  card bf16 against CPU fp32 within phase 8's gates;
+              (f) the gather at K = 2 and 8 sampling points (T = 8, 32) at
+                  level 0's encoder shape within MSDA_TOL of its plain
+                  version, device times and bounds, K = 4's time within 5 %
+                  of PERF.md's; a GroundingDINO (1 + 1 layers) with K = 2 in
+                  the encoder and 8 in the decoder through its grounder: 4
+                  launches at each tap count.
 
 The last lines are the card's name and power limit, a JSON line describing
 each kernel, and {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -596,28 +625,61 @@ def bound(bytes_moved: float, flops: float, flop_rate: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def sam_inputs(gen, b, h, hk, wk, d):
+    """Random bf16 q, k, v and decomposed bias terms on the generator's
+    device."""
+    import torch
+    s = hk * wk
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=gen.device)
+               .to(torch.bfloat16) for _ in range(3))
+    bias_h, bias_w = (
+        (0.3 * torch.randn((b, h, s, n), generator=gen, device=gen.device))
+        .to(torch.bfloat16) for n in (hk, wk))
+    return q, k, v, bias_h, bias_w
+
+
+def sam_timing(name, args):
+    """The SAM kernel's time (CUDA events and the device), its plain
+    version's and SDPA's with the bias as a mask, and the kernel's bound."""
+    import torch.nn.functional as F
+    from instance_based_loc_tpu_torch.ops import sam_attention as sa
+    q, k, v, bias_h, bias_w = args
+    b, h, s, d = q.shape
+    kernel_ms = time_ms(lambda: sa.sam_attention(*args), iters=20)
+    kernel_dev_ms = device_ms(lambda: sa.sam_attention(*args),
+                              "sam_attention", iters=20)
+    plain_ms = time_ms(lambda: sa.sam_attention_reference(*args),
+                       iters=3, warmup=1)
+    mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(b, h, s, s)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), iters=20)
+    library_dev_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), iters=20)
+    del mask
+    bytes_moved = sum(x.numel() * x.element_size() for x in args) \
+        + q.numel() * q.element_size()
+    flops = 4 * b * h * s * s * d
+    bound_ms, bound_by = bound(bytes_moved, flops, H100_BF16_FLOP_PER_S)
+    log(f"sam_kernel timing at {name} ({b}, {h}, {s}, {d}) bf16: kernel "
+        f"{kernel_ms:.4f} ms ({kernel_dev_ms:.4f} ms on the device), "
+        f"plain {plain_ms:.4f} ms, sdpa with the bias as mask "
+        f"{library_ms:.4f} ms ({library_dev_ms:.4f} ms on the device), "
+        f"bound {bound_ms * 1e3:.2f} us by {bound_by} "
+        f"({bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
+
+
 def phase_sam_kernel():
     import torch
-    import torch.nn.functional as F
     from instance_based_loc_tpu_torch.ops import sam_attention as sa
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(1)
-
-    def inputs(b, h, hk, wk, d):
-        s = hk * wk
-        q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(3))
-        bias_h, bias_w = (
-            (0.3 * torch.randn((b, h, s, n), generator=gen, device="cuda"))
-            .to(torch.bfloat16) for n in (hk, wk))
-        return q, k, v, bias_h, bias_w
-
     errs = {}
     for name, shape in (("SAM-H", (1, 16, 64, 64, 80)),
                         ("SAM-B", (1, 12, 64, 64, 64)),
                         ("48x64 grid", (1, 16, 48, 64, 80)),
                         ("48x48 grid", (1, 16, 48, 48, 80))):
-        args = inputs(*shape)
+        args = sam_inputs(gen, *shape)
         out = sa.sam_attention(*args)
         torch.cuda.synchronize()
         ref = sa.sam_attention_reference(*args).float()
@@ -631,38 +693,11 @@ def phase_sam_kernel():
         errs[name] = err
         del out, ref, diff
 
-    def timing(name, args):
-        q, k, v, bias_h, bias_w = args
-        b, h, s, d = q.shape
-        kernel_ms = time_ms(lambda: sa.sam_attention(*args), iters=20)
-        kernel_dev_ms = device_ms(lambda: sa.sam_attention(*args),
-                                  "sam_attention", iters=20)
-        plain_ms = time_ms(lambda: sa.sam_attention_reference(*args),
-                           iters=3, warmup=1)
-        mask = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(
-            b, h, s, s)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask), iters=20)
-        library_dev_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask), iters=20)
-        del mask
-        bytes_moved = sum(x.numel() * x.element_size() for x in args) \
-            + q.numel() * q.element_size()
-        flops = 4 * b * h * s * s * d
-        bound_ms, bound_by = bound(bytes_moved, flops, H100_BF16_FLOP_PER_S)
-        log(f"sam_kernel timing at {name} ({b}, {h}, {s}, {d}) bf16: kernel "
-            f"{kernel_ms:.4f} ms ({kernel_dev_ms:.4f} ms on the device), "
-            f"plain {plain_ms:.4f} ms, sdpa with the bias as mask "
-            f"{library_ms:.4f} ms ({library_dev_ms:.4f} ms on the device), "
-            f"bound {bound_ms * 1e3:.2f} us by {bound_by} "
-            f"({bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
-
-    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = timing(
-        "SAM-H", inputs(1, 16, 64, 64, 80))
-    timing("SAM-B", inputs(1, 12, 64, 64, 64))
+    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = sam_timing(
+        "SAM-H", sam_inputs(gen, 1, 16, 64, 64, 80))
+    sam_timing("SAM-B", sam_inputs(gen, 1, 12, 64, 64, 64))
     # WK != 64: the kernel's general bias path (bias_w from shared memory)
-    timing("SAM-H width, 48x48 grid", inputs(1, 16, 48, 48, 80))
+    sam_timing("SAM-H width, 48x48 grid", sam_inputs(gen, 1, 16, 48, 48, 80))
     log(f"sam_kernel phase done in {time.perf_counter() - t0:.1f} s")
     return {"name": "sam_attention", "route": "cuda",
             "source": "instance_based_loc_tpu_torch/csrc/sam_attention.cu",
@@ -705,7 +740,7 @@ def phase_msda_kernel():
             vmap, lin, coeff), iters=10)
         bytes_moved = (lin.numel() * 4 + coeff.numel() * 4
                        + vmap.numel() * vmap.element_size() + q * heads * d * 4)
-        flops = 2 * q * heads * mg.TAPS * d
+        flops = 2 * q * heads * lin.shape[-1] * d
         bound_ms, bound_by = bound(bytes_moved, flops, H100_FP32_FLOP_PER_S)
         log(f"msda_kernel timing {name}: kernel {kernel_ms:.4f} ms on the "
             f"device ({call_ms:.4f} ms per back-to-back call), plain "
@@ -2136,6 +2171,443 @@ def phase_dator_train(workdir, scene_data, card):
     return cli_launches + resume_launches + learn_launches
 
 
+# phase 14 gates (set before the first run on the card)
+# (a) each assignment's recovered transform against the truth: the golden
+# thresholds of tests/test_registration_golden.py (rotation and translation
+# entries within 0.03, fitness above 0.95, rmse below 0.02 at voxel 0.05 x
+# local factor 0.4); the card against the CPU from the same RANSAC samples:
+# transforms entrywise within REG_CARD_CPU_TOL (fp32 sums in other orders
+# through 30 + 30 + 30 ICP steps; a RANSAC tie broken otherwise lands in
+# the same basin), fitness within 2 points of 1024 (an inlier at the
+# threshold may flip)
+REG_GOLDEN = (0.03, 0.03, 0.95, 0.02)
+REG_CARD_CPU_TOL = 1e-3
+REG_FITNESS_TOL = 2 / 1024
+# (b) semantic ICP: the transform within 1e-3 of the truth (an exact
+# rigid copy; fp32 Kabsch on a well-conditioned cloud) and of the CPU's
+SEMANTIC_TOL = 1e-3
+# (f) the K = 4 gather's device time at level 0 (encoder shape) within 5 %
+# of its PERF.md row: 0.0166 ms (PR 6 run 15), 0.0168 ms (PR 7 run 1), and
+# on PR 11's cards the kernel before its tap count became a template
+# parameter 0.0169-0.0173 ms (perf/torch_gather_timing.py; the tree with
+# it gave the same in turns with it, and 0.0176 ms here, after phase 13)
+MSDA_K4_MS = (0.0166, 0.0173)
+MSDA_K4_DRIFT = 0.05
+# (d) the JAX package's localisation_trial on the same hm3d episode on the
+# CPU (the same flags): successes of its 4 eval views (PERF.md, PR 11)
+HM3D_FLAGS = ["--convention", "hm3d", "--embeddings", "color",
+              "--detector", "color", "--focal-length", "300",
+              "--sampling-period", "2", "-e", "4", "9", "14", "19",
+              "--consider-floor", "--min-points", "200",
+              "--downsample-voxel-size", "0.02", "--dbscan-eps", "0.1",
+              "--dbscan-min-points", "40", "--no-outlier-removal",
+              "--testname", "hm3d_color", "--quiet"]
+HM3D_JAX_SUCCESSES = 3
+
+
+def box_surface(rng, n, size=(1.0, 0.5, 0.3)):
+    """Points on a box's surface (tests/test_registration.py's sampler)."""
+    import numpy as np
+    size = np.asarray(size)
+    face = rng.integers(0, 6, size=n)
+    uv = rng.uniform(-0.5, 0.5, size=(n, 2))
+    axis = face % 3
+    pts = np.zeros((n, 3))
+    rows = np.arange(n)
+    pts[rows, axis] = np.where(face < 3, 0.5, -0.5) * size[axis]
+    lo = np.minimum((axis + 1) % 3, (axis + 2) % 3)
+    hi = np.maximum((axis + 1) % 3, (axis + 2) % 3)
+    pts[rows, lo] = uv[:, 0] * size[lo]
+    pts[rows, hi] = uv[:, 1] * size[hi]
+    return pts.astype(np.float32)
+
+
+def random_rigid(rng, angle=0.8, shift=1.0):
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = Rotation.from_euler("xyz", rng.uniform(-angle, angle, 3)
+                                    ).as_matrix()
+    T[:3, 3] = rng.uniform(-shift, shift, 3)
+    return T
+
+
+def rest_registration(dev="cuda"):
+    """(a) register_assignments_batched at the main path's sizes."""
+    import numpy as np
+    import torch
+    from instance_based_loc_tpu_torch.ops import (
+        fpfh, normals, ransac, registration)
+    from instance_based_loc_tpu_torch.ops.pointcloud import PointCloud
+    from instance_based_loc_tpu_torch.ops.registration import _mul32
+    a, n, n_eval, hyp, iters, voxel = 8, 1024, 2048, 4096, 30, 0.05
+    rng = np.random.default_rng(14)
+    srcs, tgts, truth = [], [], []
+    for _ in range(a):
+        src = box_surface(rng, n)
+        T = random_rigid(rng)
+        srcs.append(src)
+        tgts.append((src @ T[:3, :3].T + T[:3, 3]
+                     + rng.normal(scale=0.003, size=src.shape)
+                     ).astype(np.float32))
+        truth.append(T)
+    cols = rng.uniform(size=(a, n, 3)).astype(np.float32)
+
+    def batch(clouds, device):
+        return PointCloud(torch.as_tensor(np.stack(clouds), device=device),
+                          torch.as_tensor(cols, device=device),
+                          torch.ones((a, n), dtype=torch.bool, device=device))
+
+    # the same RANSAC samples for both devices, drawn from the CPU's
+    # correspondences in proportion to validity
+    cs, ct = batch(srcs, "cpu"), batch(tgts, "cpu")
+    rn, rf = _mul32(voxel, 2.0), _mul32(voxel, 5.0)
+    fs = fpfh.compute_fpfh(cs.points, normals.estimate_normals(
+        cs.points, cs.mask, rn), cs.mask, rf)
+    ft = fpfh.compute_fpfh(ct.points, normals.estimate_normals(
+        ct.points, ct.mask, rn), ct.mask, rf)
+    _, valid = ransac.feature_correspondences(fs, cs.mask, ft, ct.mask)
+    samples = ransac.draw_samples(valid, hyp, 3,
+                                  torch.Generator().manual_seed(14))
+    init = np.tile(np.eye(4, dtype=np.float32), (a, 1, 1))
+    has_init = np.arange(a) % 2 == 0        # identity: a poor init
+    means = np.zeros((a, 3), np.float32)
+    eval_src = np.concatenate(srcs)[:n_eval]
+    eval_tgt = np.concatenate(tgts)[:n_eval]
+    out = {}
+    for device in (dev, "cpu"):
+        args = (batch(srcs, device), batch(tgts, device), init, has_init,
+                means, means,
+                PointCloud.from_numpy(eval_src, capacity=n_eval,
+                                      device=device),
+                PointCloud.from_numpy(eval_tgt, capacity=n_eval,
+                                      device=device), voxel)
+        kw = dict(num_hypotheses=hyp, icp_iterations=iters,
+                  samples=samples.to(device))
+        out[device] = registration.register_assignments_batched(*args, **kw)
+        if device == dev:
+            call_ms = time_ms(lambda: registration.register_assignments_batched(
+                *args, **kw), iters=3, warmup=1)
+    T, rmse, fit, full_rmse, full_fit = out[dev]
+    r_err = max(float(np.abs(T[i, :3, :3] - truth[i][:3, :3]).max())
+                for i in range(a))
+    t_err = max(float(np.abs(T[i, :3, 3] - truth[i][:3, 3]).max())
+                for i in range(a))
+    card_cpu = float(np.abs(T - out["cpu"][0]).max())
+    fit_diff = float(np.abs(fit - out["cpu"][2]).max())
+    log(f"rest (a) registration: {a} assignments x {n} points, {hyp} "
+        f"hypotheses, {iters} ICP iterations, {n_eval}-point evaluation "
+        f"clouds: {call_ms:.2f} ms per call (CUDA events); worst rotation "
+        f"entry {r_err:.2e}, translation {t_err:.2e} (gates "
+        f"{REG_GOLDEN[0]}, {REG_GOLDEN[1]}); fitness "
+        f"{np.round(fit, 4).tolist()} (gate > {REG_GOLDEN[2]}), rmse max "
+        f"{rmse.max():.4f} (gate < {REG_GOLDEN[3]}); full-cloud fitness at "
+        f"0.02 {np.round(full_fit, 3).tolist()}; card vs CPU transforms "
+        f"max|diff| {card_cpu:.2e} (gate {REG_CARD_CPU_TOL}), fitness "
+        f"{fit_diff:.2e} (gate {REG_FITNESS_TOL:.2e})")
+    check(r_err <= REG_GOLDEN[0] and t_err <= REG_GOLDEN[1]
+          and bool(np.all(fit > REG_GOLDEN[2]))
+          and bool(np.all(rmse < REG_GOLDEN[3])),
+          f"rest (a): an assignment misses the golden thresholds: "
+          f"{r_err}, {t_err}, {fit}, {rmse}")
+    check(card_cpu <= REG_CARD_CPU_TOL and fit_diff <= REG_FITNESS_TOL,
+          f"rest (a): card and CPU disagree: {card_cpu}, {fit_diff}")
+    return call_ms
+
+
+def rest_semantic_icp(dev="cuda"):
+    """(b) semantic_icp at 1024 points, 6 labels: six identical boxes
+    (octahedron vertices) that only the labels tell apart."""
+    import numpy as np
+    import torch
+    from instance_based_loc_tpu_torch.ops import icp
+    rng = np.random.default_rng(15)
+    blob = box_surface(rng, 170, size=(0.5, 0.4, 0.3))
+    corners = 0.8 * np.concatenate([np.eye(3), -np.eye(3)])
+    src = np.concatenate([blob + c for c in corners]
+                         + [blob[:4] + corners[0]]).astype(np.float32)
+    labels = np.concatenate([np.repeat(np.arange(6), 170), np.zeros(4)]
+                            ).astype(np.int32)
+    T = random_rigid(rng, angle=0.15, shift=0.3)
+    tgt = (src @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+    res = {}
+    for device in (dev, "cpu"):
+        def t(x):
+            return torch.as_tensor(x, device=device)
+        ones = torch.ones(len(src), dtype=torch.bool, device=device)
+        res[device] = [x.cpu().numpy() for x in icp.semantic_icp(
+            t(src), t(labels), ones, t(tgt), t(labels), ones, 1.0,
+            max_iterations=30)]
+    err = float(np.abs(res[dev][0] - T).max())
+    card_cpu = float(np.abs(res[dev][0] - res["cpu"][0]).max())
+    log(f"rest (b) semantic_icp: {len(src)} points, 6 labels: transform "
+        f"max|diff| to the truth {err:.2e}, card vs CPU {card_cpu:.2e} "
+        f"(gates {SEMANTIC_TOL}); fitness {float(res[dev][1]):.4f}, rmse "
+        f"{float(res[dev][2]):.2e}")
+    check(err <= SEMANTIC_TOL and card_cpu <= SEMANTIC_TOL,
+          f"rest (b): semantic ICP off: {err}, {card_cpu}")
+
+
+def rest_assignments(dev="cuda"):
+    """(c) top_assignments at D = 8, M = 128 (56 subsets of 129^3)."""
+    import numpy as np
+    import torch
+    from instance_based_loc_tpu_torch.ops import assignment
+    sims = np.random.default_rng(16).uniform(-1.0, 1.0, size=(8, 128)
+                                             ).astype(np.float32)
+    card = assignment.top_assignments(sims, device=dev)
+    cpu = assignment.top_assignments(sims, device="cpu")
+    ms = time_ms(lambda: assignment.top_assignments(sims, device=dev),
+                 iters=5, warmup=1)
+    sv = assignment.SimVolume(sims, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    volume_ms = time_ms(lambda: sv.fast_construct_volume(3), iters=5,
+                        warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    sv.get_top_indices_from_subvolumes(num_per_length=4)
+    select_ms = (time.perf_counter() - t0) * 1e3
+    log(f"rest (c) top_assignments D=8 M=128: {len(card)} assignments "
+        f"{card}; {ms:.2f} ms per call (CUDA events): the volumes and their "
+        f"top-k with the copy back {volume_ms:.2f} ms, the host's dedup and "
+        f"selection {select_ms:.2f} ms; peak device memory {peak:.2f} GiB; "
+        f"equal to the CPU's: {card == cpu}")
+    check(card == cpu and len(card) == 6,
+          f"rest (c): the card's assignments {card} differ from the CPU's "
+          f"{cpu}")
+    return ms
+
+
+def rest_hm3d(workdir, dev="cuda"):
+    """(d) the port's gen_hm3d_episode, then localisation_trial on it."""
+    import numpy as np
+    from instance_based_loc_tpu_torch.cli import gen_hm3d_episode
+    from instance_based_loc_tpu_torch.cli import localisation_trial as lt
+    from instance_based_loc_tpu_torch.data import loader
+    from instance_based_loc_tpu_torch.utils.metrics import is_success
+    t0 = time.perf_counter()
+    ep = f"{workdir}/hm3d_ep"
+    gen_hm3d_episode.main(["--out", ep, "--timesteps", "40"])
+    gen_s = time.perf_counter() - t0
+    ds = loader.RGBDDataset(ep, convention="hm3d", sampling_period=2,
+                            evaluation_indices=[4, 9, 14, 19],
+                            focal_length_x=300.0, focal_length_y=300.0,
+                            build_map=False, device=dev)
+    check(len(ds) == 20 and len(ds.environment_indices) == 16
+          and ds.load_depth_scaled(0).shape == (240, 320),
+          f"rest (d): the loader counts {len(ds)} frames, "
+          f"{len(ds.environment_indices)} for the memory")
+    args = lt.apply_convention_defaults(lt.make_parser().parse_args(
+        HM3D_FLAGS + ["--data-path", ep, "--out-dir", f"{workdir}/hm3d_out",
+                      "--device", dev]))
+    t1 = time.perf_counter()
+    with working_directory(workdir):
+        trans, rot = lt.main(args)
+    run_s = time.perf_counter() - t1
+    wins = sum(is_success(te, re_) for te, re_ in zip(trans, rot))
+    log(f"rest (d) hm3d: episode of 40 frames at 240x320 written in "
+        f"{gen_s:.1f} s; the CLI (16 memory frames, 4 eval views) in "
+        f"{run_s:.1f} s: translation errors {np.round(trans, 4).tolist()}, "
+        f"rotation errors {np.round(rot, 4).tolist()}; {wins} of 4 within "
+        f"0.6 m / 0.3 rad (the JAX package's CLI on the same episode on "
+        f"the CPU: {HM3D_JAX_SUCCESSES} of 4; not gated)")
+    check(len(trans) == 4 and bool(np.all(np.isfinite(trans + rot))),
+          f"rest (d): poses not finite: {trans}, {rot}")
+
+
+def rest_sam768(cascade, dev="cuda"):
+    """(e) SAM-H served on a 768 px canvas from a state dict with 1024 px
+    tables; returns the kernels-line entry of SAM attention at G = 48."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from instance_based_loc_tpu_torch.models import sam as S
+    from instance_based_loc_tpu_torch.ops import sam_attention as sa
+    t0 = time.perf_counter()
+    h_cfg = dataclasses.replace(S.SamConfig(), img_size=768)
+    sd = {k: v.float() for k, v in
+          cascade.segmenter.model.state_dict().items()}
+    check(sd["image_encoder.pos_embed"].shape[1] == 64
+          and sd["image_encoder.blocks.7.attn.rel_pos_h"].shape[0] == 127,
+          "rest (e): the state dict's tables are not SAM-H's at 1024 px")
+    seg = S.build_sam_segmenter(cfg=h_cfg, state_dict=sd,
+                                compute_dtype="bfloat16", device=dev)
+    del sd
+    frame = e2e_frames()[0][0][0]
+    boxes = np.array([[20.0, 30.0, 200.0, 220.0], [100.0, 50.0, 310.0, 230.0],
+                      [0.0, 0.0, 319.0, 239.0]], np.float32)
+    # the main path: every count from zero just before, read just after
+    sa.launches = 0
+    seg.encodes = 0
+    masks = seg(frame, boxes)
+    torch.cuda.synchronize()
+    launches, encodes = sa.launches, seg.encodes
+    with torch.no_grad():
+        emb = seg.model.image_encoder(S.canvas(
+            torch.as_tensor(frame, device=dev)[None], 768,
+            torch.bfloat16))[0]
+        logits, _ = seg.model.decode(emb, torch.as_tensor(
+            boxes * 768 / 320, device=dev))
+    load_s = time.perf_counter() - t0
+    encode_ms = sync_ms(lambda: seg.model.image_encoder(S.canvas(
+        torch.as_tensor(frame, device=dev)[None], 768, torch.bfloat16)))
+    log(f"rest (e) SAM-H at 768 px (grid 48, rel-pos tables resized from "
+        f"1024 px): masks {masks.shape}, {launches} sam_attention launches "
+        f"for {encodes} encode(s) (4 global blocks); logits finite "
+        f"{bool(torch.isfinite(logits).all())}; encode {encode_ms:.1f} ms "
+        f"(host clock, synchronised); load and first call {load_s:.1f} s")
+    check(encodes == 1 and launches == 4 * encodes,
+          f"rest (e): {launches} SAM kernel launches for {encodes} encodes")
+    check(masks.shape == (3, 240, 320) and bool(torch.isfinite(logits).all()),
+          "rest (e): SAM-H at 768 px gave non-finite logits")
+    del seg, emb, logits
+
+    # the kernel at the global blocks' shape, G = 48 (the general bias path)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    args = sam_inputs(gen, 1, 16, 48, 48, 80)
+    out = sa.sam_attention(*args)
+    ref = sa.sam_attention_reference(*args).float()
+    diff = (out.float() - ref).abs()
+    err = diff.max().item()
+    excess = (diff - SAM_TOL[0] - SAM_TOL[1] * ref.abs()).max().item()
+    log(f"rest (e) sam_attention (1, 16, 2304, 80) bf16: max|diff| "
+        f"{err:.3g} (tolerance {SAM_TOL[0]} + {SAM_TOL[1]:.3g} |ref|)")
+    check(excess <= 0, f"rest (e): sam kernel disagrees at G = 48: {err}")
+    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = sam_timing(
+        "SAM-H at 768 px, 48x48 grid", args)
+
+    # a reduced SAM (SAM-H width, 4 blocks, one global) at 768 px from
+    # 1024 px tables: the card (bf16, kernel) against the CPU (fp32)
+    scfg = S.SamConfig(encoder_depth=4, global_blocks=(3,))
+    small = S.Sam(scfg).to(dev)
+    S.init_params(small, torch.Generator(device=dev).manual_seed(18))
+    sd = {k: v.float().cpu() for k, v in small.state_dict().items()}
+    del small
+    cfg768 = dataclasses.replace(scfg, img_size=768)
+    cpu = S.sam_from_state_dict(sd, cfg768).eval()
+    card = S.sam_from_state_dict(sd, cfg768).to(dev, torch.bfloat16).eval()
+    raw = torch.as_tensor(frame)[None]
+    bx = torch.as_tensor(boxes * 768 / 320)
+    with torch.no_grad():
+        before = sa.launches
+        emb_c = card.image_encoder(S.canvas(raw.to(dev), 768,
+                                            torch.bfloat16))[0]
+        mc, _ = card.decode(emb_c, bx.to(dev))
+        torch.cuda.synchronize()
+        check(sa.launches == before + 1,
+              "rest (e): the reduced SAM missed the attention kernel")
+        emb_r = cpu.image_encoder(S.canvas(raw, 768, torch.float32))[0]
+        mr, _ = cpu.decode(emb_r, bx)
+    emb_c = emb_c.float().cpu()
+    cos = F.cosine_similarity(emb_c.flatten(), emb_r.flatten(), dim=0).item()
+    mask_rel = ((mc.float().cpu() - mr).abs().max() / mr.abs().max()).item()
+    log(f"rest (e) reduced SAM (SAM-H width, 4 blocks) at 768 px, card bf16 "
+        f"vs CPU fp32: embedding cosine {cos:.6f} (gate {SAM_EMB_COS_MIN}), "
+        f"mask logits max|diff| = {mask_rel:.4f} of max|ref| (gate "
+        f"{SAM_LOGIT_REL_MAX})")
+    check(cos >= SAM_EMB_COS_MIN and mask_rel <= SAM_LOGIT_REL_MAX,
+          f"rest (e): reduced SAM at 768 px: cosine {cos}, logits "
+          f"{mask_rel}")
+    return {"name": "sam_attention (G = 48, 768 px canvas)", "route": "cuda",
+            "source": "instance_based_loc_tpu_torch/csrc/sam_attention.cu",
+            "replaces": "instance_based_loc_tpu/ops/pallas/sam_attention.py:44",
+            "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def rest_msda(workdir, dev="cuda"):
+    """(f) the gather at K = 2 and 8 sampling points (and K = 4's time),
+    then a GroundingDINO with K = 2 in the encoder and 8 in the decoder
+    through its grounder; returns the kernels-line entries of T = 8, 32."""
+    import torch
+    from instance_based_loc_tpu_torch.models import gdino as G
+    from instance_based_loc_tpu_torch.ops import msda, msda_gather as mg
+    gen = torch.Generator(device=dev).manual_seed(19)
+    hh = ww = 100
+    heads, d, q = 8, 32, 13294
+    vmap = torch.randn((hh * ww, heads, d), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    entries = {}
+    for k in (2, 4, 8):
+        loc = torch.rand((q, heads, k, 2), generator=gen, device=dev) \
+            * 1.1 - 0.05
+        w = torch.softmax(torch.randn((q, heads, k), generator=gen,
+                                      device=dev), dim=-1)
+        lin, coeff = msda._level_rows(loc, w, hh, ww)
+        out = mg.msda_level_gather(vmap, lin, coeff)
+        ref = mg.msda_level_gather_reference(vmap, lin, coeff)
+        err = (out - ref).abs().max().item()
+        check(err <= MSDA_TOL, f"rest (f): gather disagrees at K = {k}: "
+                               f"{err}")
+        kernel_ms = device_ms(lambda: mg.msda_level_gather(vmap, lin, coeff),
+                              "msda_gather")
+        plain_ms = time_ms(lambda: mg.msda_level_gather_reference(
+            vmap, lin, coeff), iters=10)
+        taps = lin.shape[-1]
+        bytes_moved = (lin.numel() * 4 + coeff.numel() * 4
+                       + vmap.numel() * vmap.element_size() + q * heads * d * 4)
+        bound_ms, bound_by = bound(bytes_moved, 2 * q * heads * taps * d,
+                                   H100_FP32_FLOP_PER_S)
+        log(f"rest (f) msda_gather K={k} (T={taps}) Q={q} S={hh * ww} "
+            f"H={heads} D={d} bf16: max|diff| {err:.3g} (tolerance "
+            f"{MSDA_TOL}); kernel {kernel_ms:.4f} ms on the device, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us by {bound_by} "
+            f"({bytes_moved / 1e6:.1f} MB)")
+        entries[taps] = {
+            "name": f"msda_gather (T = {taps}, K = {k} points)",
+            "route": "cuda",
+            "source": "instance_based_loc_tpu_torch/csrc/msda_gather.cu",
+            "replaces": "instance_based_loc_tpu/ops/pallas/msda_gather.py:37",
+            "launches": None, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+    k4 = entries[16]["ms"]
+    lo, hi = MSDA_K4_MS[0] * (1 - MSDA_K4_DRIFT), \
+        MSDA_K4_MS[1] * (1 + MSDA_K4_DRIFT)
+    log(f"rest (f) K = 4 gather {k4:.4f} ms against PERF.md's "
+        f"{MSDA_K4_MS[0]}-{MSDA_K4_MS[1]} ms (gate [{lo:.4f}, {hi:.4f}])")
+    check(lo <= k4 <= hi, f"rest (f): the K = 4 gather moved to {k4} ms")
+
+    # the main path: GroundingDINO at full width, 1 + 1 layers, K = 2 in
+    # the encoder and K = 8 in the decoder, through its grounder
+    gcfg = G.GDinoConfig(encoder_layers=1, decoder_layers=1,
+                         encoder_n_points=2, decoder_n_points=8)
+    grounder = G.build_gdino_grounder(vocab_path=write_vocab(workdir),
+                                      cfg=gcfg, random_init=True,
+                                      compute_dtype="bfloat16", device=dev)
+    frame = e2e_frames()[0][0][0]
+    mg.launches_by_taps.clear()
+    out = grounder.detect_all(frame, KEYWORDS)
+    torch.cuda.synchronize()
+    by_taps = dict(mg.launches_by_taps)
+    log(f"rest (f) GroundingDINO (1 + 1 layers, K = 2 / 8) detect_all: "
+        f"gather launches by tap count {by_taps}; "
+        f"{sum(len(b) for b, _ in out)} boxes kept")
+    levels = gcfg.num_feature_levels
+    check(by_taps == {8: levels, 32: levels},
+          f"rest (f): gather launches {by_taps}, expected {levels} at T = 8 "
+          f"and at T = 32")
+    entries[8]["launches"] = by_taps[8]
+    entries[32]["launches"] = by_taps[32]
+    return entries[8], entries[32]
+
+
+def phase_rest(workdir, cascade):
+    """14. the library APIs and options of the last slice: registration,
+    semantic ICP, assignment search, the hm3d episode CLI, SAM-H below its
+    checkpoint's canvas, MSDA with K = 2 / 8 sampling points."""
+    t0 = time.perf_counter()
+    rest_registration()
+    rest_semantic_icp()
+    rest_assignments()
+    rest_hm3d(workdir)
+    sam48 = rest_sam768(cascade)
+    gather8, gather32 = rest_msda(workdir)
+    log(f"rest phase done in {time.perf_counter() - t0:.1f} s")
+    return [sam48, gather8, gather32]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2172,10 +2644,11 @@ def main() -> int:
         kernel["launches"] += phase_dator(workdir, scene_data)
         kernel["launches"] += phase_clip_loc(workdir)
         kernel["launches"] += phase_dator_train(workdir, scene_data, card)
+        shapes = phase_rest(workdir, cascade)
     log(f"all phases passed in {time.perf_counter() - T_START:.1f} s")
 
     print(card, flush=True)
-    print(json.dumps({"kernels": [kernel, sam, msda]}), flush=True)
+    print(json.dumps({"kernels": [kernel, sam, msda] + shapes}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

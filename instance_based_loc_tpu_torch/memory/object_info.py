@@ -14,12 +14,15 @@ import pickle
 
 import numpy as np
 
+from ..ops.pointcloud import PointCloud
 from ..ops.voxel import voxel_downsample_numpy
 
 
 def _cloud_to_numpy(cloud) -> tuple[np.ndarray, np.ndarray]:
-    """Accept a (points, colors) tuple or a bare points array; return host
-    numpy (points, colors)."""
+    """Accept a PointCloud, a (points, colors) tuple or a bare points
+    array; return host numpy (points, colors)."""
+    if isinstance(cloud, PointCloud):
+        return cloud.to_numpy()
     if isinstance(cloud, tuple):
         pts, cols = cloud
         pts = np.asarray(pts, np.float32).reshape(-1, 3)
@@ -48,6 +51,12 @@ class ObjectInfo:
         return (f"ObjectInfo == ID: {self.id}, Names: {self.names}, "
                 f"Mean_Emb: {self.mean_emb.shape}, "
                 f"Num. Points: {self.num_points()}")
+
+    def cloud(self, device="cuda") -> PointCloud:
+        """The instance's points as a padded PointCloud on `device` (an
+        upload; host work reads .pts / .cols). The JAX package's is a
+        property on its default device."""
+        return PointCloud.from_numpy(self.pts, self.cols, device=device)
 
     def num_points(self) -> int:
         return len(self.pts)

@@ -728,9 +728,11 @@ def build_gdino_grounder(checkpoint_path: str | None = None,
     `grounder.multi_phrase = True`), `grounder.model` and
     `grounder.forwards`, a count of model runs.
 
-    Weights: an HF `.bin`/`.pth` state dict of
-    GroundingDinoForObjectDetection, or (`random_init=True`) random weights
-    of `cfg` from seed 0. bf16 inference by default
+    Weights: an HF `.bin`/`.pth`/`.pt` state dict of
+    GroundingDinoForObjectDetection; any other file is the JAX package's
+    pickled parameter tree (an already-ported flax tree with numpy leaves,
+    read by a restricted unpickler: a tree holding flax or jax objects
+    raises); or (`random_init=True`) random weights of `cfg` from seed 0. bf16 inference by default
     (`cast_for_inference`); scores are
     thresholded on fp32 sigmoids."""
     cfg = cfg or GDinoConfig()
@@ -744,9 +746,14 @@ def build_gdino_grounder(checkpoint_path: str | None = None,
     if checkpoint_path is None:
         model = model.to(dev)
         init_params(model, torch.Generator(device=dev).manual_seed(0))
-    else:
+    elif checkpoint_path.endswith((".pth", ".bin", ".pt")):
         sd = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
         model.load_state_dict(hf_state_dict(sd), strict=True)
+    else:
+        from .vit_embedder import read_pickled_tree
+        model.load_state_dict(
+            params_from_jax(read_pickled_tree(checkpoint_path), cfg),
+            strict=True)
     # the word-embedding lookup happens on the host, from an fp32 table
     vocab_table = model.model.text_backbone.embeddings.word_embeddings \
         .weight.detach().float().cpu().numpy()

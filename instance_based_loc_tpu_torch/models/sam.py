@@ -622,23 +622,90 @@ def unresize(logits, img_size: int, h: int, w: int):
     return small[:, 0] > 0
 
 
-def _check_canvas(sd, cfg: SamConfig) -> None:
-    """A checkpoint's global blocks fix the canvas (their rel-pos tables
-    span the whole grid); serving on another canvas needs those tables
-    resized, which the port does not do yet."""
-    for i in cfg.global_blocks:
-        rows = sd[f"image_encoder.blocks.{i}.attn.rel_pos_h"].shape[0]
-        if rows != 2 * cfg.grid - 1:
-            raise ValueError(
-                f"SAM on a {cfg.img_size} px canvas needs {2 * cfg.grid - 1}"
-                f"-row rel-pos tables; the checkpoint's are {rows} rows (a "
-                f"{(rows + 1) // 2 * cfg.patch_size} px canvas), and "
-                f"resizing them is not ported")
+def _resample_matrix(n_in: int, n_out: int, method: str) -> np.ndarray:
+    """(n_out, n_in) weights of `jax.image.resize` along one axis, computed
+    as its `compute_weight_mat` computes them, in fp32: the kernel widened
+    by the shrink factor (antialiasing), each output's weights normalised,
+    outputs whose sample lies outside [-0.5, n_in - 0.5] zeroed. `method`
+    is "linear" (triangle) or "cubic" (Keys, a = -0.5), which
+    `F.interpolate` does not reproduce (a = -0.75, no antialiasing)."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
+        / kernel_scale
+    if method == "cubic":
+        w = np.where(x >= 1.0, ((f32(-0.5) * x + f32(2.5)) * x - f32(4.0))
+                     * x + f32(2.0),
+                     ((f32(1.5) * x - f32(2.5)) * x) * x + f32(1.0))
+        w = np.where(x >= 2.0, f32(0.0), w)
+    elif method == "linear":
+        w = np.maximum(f32(0.0), f32(1.0) - x)
+    else:
+        raise ValueError(f"no resize method {method!r}")
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(f32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32).T
+
+
+def resize_like_jax(x, shape: tuple, method: str) -> torch.Tensor:
+    """`jax.image.resize(x, shape, method)` (antialiased) for "linear" or
+    "cubic": its fp32 weight matrix along each axis whose size changes,
+    applied in float64; returns fp32."""
+    out = (x.detach().to("cpu", torch.float64) if isinstance(x, torch.Tensor)
+           else torch.as_tensor(np.asarray(x, np.float64)))
+    for dim, (n_in, n_out) in enumerate(zip(out.shape, shape)):
+        if n_in == n_out:
+            continue
+        w = torch.as_tensor(_resample_matrix(n_in, n_out, method)).double()
+        out = torch.movedim(torch.tensordot(w, out, dims=([1], [dim])), 0,
+                            dim)
+    return out.float()
+
+
+def fit_canvas(sd: dict, cfg: SamConfig) -> dict:
+    """An official-layout state dict's position tables for `cfg`'s canvas
+    (the JAX package's `_resize_pos_embed` / `_resize_rel_pos`): the
+    absolute embedding resized bicubically to the cfg.grid x cfg.grid grid,
+    each global block's rel-pos tables linearly to 2 * grid - 1 rows,
+    windowed blocks' to 2 * window_size - 1 (which they hold already).
+    Tables of the right size pass through untouched."""
+    sd = dict(sd)
+    g = cfg.grid
+    pe = sd["image_encoder.pos_embed"]
+    if pe.shape[1] != g:
+        sd["image_encoder.pos_embed"] = resize_like_jax(
+            pe, (pe.shape[0], g, g, pe.shape[-1]), "cubic")
+    for i in range(cfg.encoder_depth):
+        want = (2 * g - 1 if i in cfg.global_blocks
+                else 2 * cfg.window_size - 1)
+        for axis in ("h", "w"):
+            key = f"image_encoder.blocks.{i}.attn.rel_pos_{axis}"
+            table = sd[key]
+            if table.shape[0] != want:
+                sd[key] = resize_like_jax(table, (want, table.shape[1]),
+                                          "linear")
+    return sd
+
+
+def sam_from_state_dict(sd: dict, cfg: SamConfig | None = None) -> Sam:
+    """A fp32 `Sam` on the CPU from an official-layout state dict, sized
+    from the dict unless `cfg` is given; a `cfg` canvas other than the
+    checkpoint's resizes the position tables (`fit_canvas`)."""
+    cfg = cfg or sam_config_from_state_dict(sd)
+    model = Sam(cfg)
+    model.load_state_dict(official_state_dict(fit_canvas(sd, cfg)),
+                          strict=True)
+    return model
 
 
 def build_sam_segmenter(checkpoint_path: str | None = None,
                         cfg: SamConfig | None = None, max_boxes: int = 16,
-                        compute_dtype=None, device="cuda"):
+                        compute_dtype=None, device="cuda",
+                        state_dict: dict | None = None):
     """segmenter(rgb, boxes_xyxy) -> (M, H, W) bool, the cascade's stage-3
     callable, with the reference predictor's resize-longest-side-1024
     transform and mask un-resize on the device. Also exposes
@@ -646,9 +713,11 @@ def build_sam_segmenter(checkpoint_path: str | None = None,
     chunk of frames, `segmenter.model`, and `segmenter.encodes`, a count of
     image-encoder runs (each runs every global block once).
 
-    Weights: an official `sam_vit_*.pth` (`checkpoint_path`; sized from the
-    file unless `cfg` is given; the canvas is the file's, 1024 px for the
-    official checkpoints, and another raises), or random weights of `cfg` from seed 0
+    Weights: an official `sam_vit_*.pth` (`checkpoint_path`) or its state
+    dict in memory (`state_dict`), sized from the weights unless `cfg` is
+    given; a `cfg.img_size` other than the checkpoint's canvas (1024 px for
+    the official files) serves there with resized position tables
+    (`fit_canvas`). Without weights, random weights of `cfg` from seed 0
     (the JAX package's weights-free default is ViT-B).
     bf16 inference by default (`models/precision.py`); box prompts stay fp32
     and mask logits are upcast to fp32 before the `> 0` test.
@@ -659,11 +728,11 @@ def build_sam_segmenter(checkpoint_path: str | None = None,
     dev = resolve_device(device)
     dt = resolve_compute_dtype(compute_dtype)
     if checkpoint_path:
-        sd = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
-        cfg = cfg or sam_config_from_state_dict(sd)
-        _check_canvas(sd, cfg)
-        model = Sam(cfg)
-        model.load_state_dict(official_state_dict(sd), strict=True)
+        state_dict = torch.load(checkpoint_path, map_location="cpu",
+                                weights_only=True)
+    if state_dict is not None:
+        model = sam_from_state_dict(state_dict, cfg)
+        cfg = model.cfg
     else:
         cfg = cfg or SAM_B
         model = Sam(cfg).to(dev)

@@ -115,6 +115,16 @@ def read_npz_tree(path: str, entry: str = "params"):
         raise ValueError(f"{path}: {err}") from None
 
 
+def read_pickled_tree(path: str):
+    """A parameter tree pickled to `path` whole (the JAX package's `.pkl`
+    checkpoints), through the same restricted unpickler."""
+    with open(path, "rb") as f:
+        try:
+            return _NumpyTreeUnpickler(f).load()
+        except ValueError as err:
+            raise ValueError(f"{path}: {err}") from None
+
+
 _HF_PORTERS = {"vit": port_hf_vit_params, "dinov2": port_hf_dinov2_params,
                "clip": port_hf_clip_vision_params}
 

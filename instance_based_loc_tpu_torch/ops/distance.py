@@ -13,6 +13,16 @@ import numpy as np
 import torch
 
 
+def gram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b^T in fp32: a (..., N, D), b (..., M, D) -> (..., N, M)."""
+    return a.float() @ b.float().transpose(-1, -2)
+
+
+def matmul_hp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in full fp32 (TF32 is off package-wide)."""
+    return torch.matmul(a, b)
+
+
 def pairwise_sq_dists(a: torch.Tensor, b: torch.Tensor,
                       clamp: bool = True) -> torch.Tensor:
     """Squared euclidean distances (..., N, M) of a (..., N, D) and

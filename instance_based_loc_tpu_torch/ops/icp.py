@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from .distance import f32_sq, masked_nearest
+from .distance import f32_sq, masked_nearest, pairwise_sq_dists
 from .kabsch import apply_transform, kabsch_solve
 from .pointcloud import gather_rows
 
@@ -111,6 +111,51 @@ def icp_scheduled(src_pts, src_mask, tgt_pts, tgt_mask, thresholds,
     rmse, fitness = evaluate_transform_arrays(
         src_pts, src_mask, tgt_pts, tgt_mask, T, float(thresholds[-1]))
     return T, fitness, rmse
+
+
+def _nearest_same_label(moved, src_labels, tgt_pts, tgt_labels, tgt_mask):
+    """Nearest target of the same label. As in the reference, a label
+    mismatch or an invalid target reads as 1e30 and the argmin takes the
+    first index, so a source point with no same-label target maps to row 0
+    and is no inlier."""
+    d2 = pairwise_sq_dists(moved, tgt_pts)
+    bad = ((src_labels[..., :, None] != tgt_labels[..., None, :])
+           | ~tgt_mask[..., None, :])
+    d2 = torch.where(bad, torch.full_like(d2, 1e30), d2)
+    val, idx = torch.min(d2, dim=-1)
+    return idx, val
+
+
+def semantic_icp(src_pts, src_labels, src_mask, tgt_pts, tgt_labels,
+                 tgt_mask, max_correspondence_distance,
+                 init_transform=None,
+                 max_iterations: int = DEFAULT_ICP_ITERS):
+    """Label-constrained ICP: a correspondence pairs only points of the
+    same semantic label (e.g. an assignment's object index); everything
+    else is `icp`'s without colours. Returns (T (..., 4, 4), fitness,
+    inlier_rmse)."""
+    thr2 = f32_sq(max_correspondence_distance)
+    T = _init(src_pts, init_transform)
+    for _ in range(max_iterations):
+        moved = apply_transform(src_pts, T)
+        nn_idx, nn_d2 = _nearest_same_label(moved, src_labels, tgt_pts,
+                                            tgt_labels, tgt_mask)
+        inlier = src_mask & (nn_d2 <= thr2)
+        T_new = kabsch_solve(src_pts, gather_rows(tgt_pts, nn_idx),
+                             weights=inlier.to(torch.float32))
+        enough = torch.sum(inlier, dim=-1) >= 3
+        T = torch.where(enough[..., None, None], T_new, T)
+    moved = apply_transform(src_pts, T)
+    _, nn_d2 = _nearest_same_label(moved, src_labels, tgt_pts, tgt_labels,
+                                   tgt_mask)
+    inlier = src_mask & (nn_d2 <= thr2)
+    count = torch.sum(inlier.to(torch.float32), dim=-1)
+    rmse = torch.sqrt(torch.sum(torch.where(inlier, nn_d2,
+                                            torch.zeros_like(nn_d2)), dim=-1)
+                      / torch.clamp(count, min=1.0))
+    n_src = torch.clamp(torch.sum(src_mask.to(torch.float32), dim=-1),
+                        min=1.0)
+    return T, count / n_src, rmse
 
 
 def evaluate_transform_arrays(src_pts, src_mask, tgt_pts, tgt_mask,

@@ -4,6 +4,7 @@ so thousands of RANSAC hypotheses solve in one call."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .eigen3 import det3x3, svd3x3
@@ -51,6 +52,31 @@ def kabsch_solve(p: torch.Tensor, q: torch.Tensor,
     out[..., :3, :3] = r
     out[..., :3, 3] = t
     out[..., 3, 3] = 1.0
+    return out
+
+
+def kabsch_masked(p: torch.Tensor, q: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """`kabsch_transform` over the rows where `mask` is True."""
+    return kabsch_transform(p, q, weights=mask.to(p.dtype))
+
+
+def kabsch_numpy(p, q) -> np.ndarray:
+    """Host Kabsch in float64 for tiny correspondence sets (e.g. an
+    assignment's 2-7 object centroids), with LAPACK's SVD; returns a
+    float32 (4, 4)."""
+    p = np.asarray(p, np.float64)
+    q = np.asarray(q, np.float64)
+    u_p = p.mean(0)
+    u_q = q.mean(0)
+    cov = (q - u_q).T @ (p - u_p)
+    uu, _, vh = np.linalg.svd(cov)
+    d = np.linalg.det(uu) * np.linalg.det(vh)
+    r = uu @ np.diag([1.0, 1.0, d]) @ vh
+    t = u_q - r @ u_p
+    out = np.eye(4, dtype=np.float32)
+    out[:3, :3] = r
+    out[:3, 3] = t
     return out
 
 

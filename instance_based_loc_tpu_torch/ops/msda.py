@@ -61,7 +61,7 @@ def _level_rows(loc, attn_w, hh: int, ww: int):
 
 def _level_gather(vmap_l, loc, attn_w, hh: int, ww: int):
     """One level: the gather kernel on the card (its plain version on the
-    CPU); K = 4 points, 16 taps.
+    CPU); K points, 4K taps (the kernel takes K = 1..8).
 
     vmap_l (S_l, H, D); loc (Q, H, K, 2); attn_w (Q, H, K) -> (Q, H, D) fp32."""
     return msda_level_gather(vmap_l, *_level_rows(loc, attn_w, hh, ww))

@@ -9,11 +9,12 @@ model's (S, H, D) value layout, not the Pallas kernel's head-major copy.
 
 `msda_level_gather` takes the plain version only for tensors on the CPU. For
 a CUDA tensor it launches the kernel or raises. `launches` counts the
-kernel's launches.
+kernel's launches, and `launches_by_taps` the same launches by tap count.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -21,9 +22,11 @@ import torch
 from . import cuda_build
 
 SOURCE = "msda_gather.cu"
-TAPS = 16                        # 4 sampling points x 4 bilinear taps
+# the tap counts T = 4K the kernel is built for: K = 1..8 sampling points
+KERNEL_TAPS = tuple(range(4, 33, 4))
 
 launches = 0
+launches_by_taps: collections.Counter = collections.Counter()
 
 _lib = None
 
@@ -33,7 +36,7 @@ def _library():
     if _lib is None:
         lib = cuda_build.load(SOURCE)
         lib.msda_gather_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.msda_gather_launch.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -51,18 +54,20 @@ def msda_level_gather_reference(vmap_l, lin, coeff):
 
 
 def msda_level_gather(vmap_l, lin, coeff):
-    """sum over 16 taps of coeff * float(vmap_l[lin, head]).
+    """sum over T taps of coeff * float(vmap_l[lin, head]).
 
-    vmap_l (S, H, D) bf16 or fp32; lin (Q, H, 16) int32; coeff (Q, H, 16)
-    fp32. Returns (Q, H, D) fp32."""
+    vmap_l (S, H, D) bf16 or fp32; lin (Q, H, T) int32; coeff (Q, H, T)
+    fp32, T = 4K for K sampling points (the kernel takes K = 1..8; the
+    plain version any T). Returns (Q, H, D) fp32."""
     global launches
     if vmap_l.dim() != 3:
         raise ValueError(f"vmap_l must be (S, H, D); got {tuple(vmap_l.shape)}")
     s, h, d = vmap_l.shape
     q = lin.shape[0]
-    if lin.shape != (q, h, TAPS) or coeff.shape != (q, h, TAPS):
+    taps = lin.shape[-1] if lin.dim() == 3 else -1
+    if lin.shape != (q, h, taps) or coeff.shape != (q, h, taps):
         raise ValueError(f"lin {tuple(lin.shape)} and coeff "
-                         f"{tuple(coeff.shape)} must be (Q, {h}, {TAPS})")
+                         f"{tuple(coeff.shape)} must be (Q, {h}, T)")
     if not vmap_l.device == lin.device == coeff.device:
         raise ValueError("vmap_l, lin and coeff must lie on one device")
     if vmap_l.device.type == "cpu":
@@ -78,6 +83,9 @@ def msda_level_gather(vmap_l, lin, coeff):
     if d % 8:
         raise ValueError(f"the kernel takes a head size that is a multiple "
                          f"of 8; got {d}")
+    if taps not in KERNEL_TAPS:
+        raise ValueError(f"the kernel takes T = 4K taps for K = 1..8 "
+                         f"sampling points; got T = {taps}")
     if not (vmap_l.is_contiguous() and lin.is_contiguous()
             and coeff.is_contiguous()):
         raise ValueError("vmap_l, lin and coeff must be contiguous")
@@ -87,10 +95,11 @@ def msda_level_gather(vmap_l, lin, coeff):
         stream = torch.cuda.current_stream(vmap_l.device).cuda_stream
         err = lib.msda_gather_launch(
             vmap_l.data_ptr(), lin.data_ptr(), coeff.data_ptr(),
-            out.data_ptr(), s, h, d, q, int(vmap_l.dtype == torch.float32),
-            stream)
+            out.data_ptr(), s, h, d, q, taps,
+            int(vmap_l.dtype == torch.float32), stream)
     if err != 0:
         raise RuntimeError(f"msda_gather kernel launch failed with CUDA "
                            f"error {err}")
     launches += 1
+    launches_by_taps[taps] += 1
     return out

@@ -54,3 +54,17 @@ def radius_outlier_keep_mask(points: torch.Tensor, masks: torch.Tensor,
     """True for points of each mask that survive radius-outlier removal."""
     counts = radius_neighbor_counts(points, masks, radius)
     return masks & (counts >= nb_points)
+
+
+def remove_radius_outliers(cloud, radius: float | None = None,
+                           nb_points: int | None = None,
+                           config: dict | None = None):
+    """`PointCloud` form of `radius_outlier_keep_mask` (the reference's
+    call sites); `config` is a DEFAULT_OUTLIER_REMOVAL_CONFIG-style dict."""
+    from .pointcloud import PointCloud
+    if config is not None:
+        radius = config["radius"]
+        nb_points = config["radius_nb_points"]
+    keep = radius_outlier_keep_mask(cloud.points, cloud.mask, radius,
+                                    nb_points)
+    return PointCloud(cloud.points, cloud.colors, keep)

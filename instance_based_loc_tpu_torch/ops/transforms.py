@@ -69,9 +69,12 @@ def rotmat_to_quat_xyzw(m: torch.Tensor) -> torch.Tensor:
     return quat_normalize(q)
 
 
-def euler_xyz_to_rotmat(euler: torch.Tensor) -> torch.Tensor:
-    """Extrinsic xyz euler angles (radians) -> rotation matrix
+def euler_xyz_to_rotmat(euler: torch.Tensor,
+                        degrees: bool = False) -> torch.Tensor:
+    """Extrinsic xyz euler angles (radians, or degrees) -> rotation matrix
     (scipy `from_euler('xyz', e)`: R = Rz @ Ry @ Rx)."""
+    if degrees:
+        euler = euler * (math.pi / 180.0)
     cx, cy, cz = (torch.cos(euler[..., i]) for i in range(3))
     sx, sy, sz = (torch.sin(euler[..., i]) for i in range(3))
     one, zero = torch.ones_like(cx), torch.zeros_like(cx)
@@ -83,6 +86,11 @@ def euler_xyz_to_rotmat(euler: torch.Tensor) -> torch.Tensor:
     rz = torch.stack([cz, -sz, zero, sz, cz, zero, zero, zero, one],
                      dim=-1).reshape(shape)
     return rz @ ry @ rx
+
+
+def euler_xyz_to_quat_xyzw(euler: torch.Tensor,
+                           degrees: bool = False) -> torch.Tensor:
+    return rotmat_to_quat_xyzw(euler_xyz_to_rotmat(euler, degrees=degrees))
 
 
 def transform_points(points: torch.Tensor, pose7: torch.Tensor) -> torch.Tensor:
@@ -98,6 +106,33 @@ def transform_points_kinect(points: torch.Tensor,
     r2 = euler_xyz_to_rotmat(_constant((0.0, math.pi, 0.0), torch.float32,
                                        pose7.device))
     return points @ (r @ r2).T - pose7[:3]
+
+
+def transform_pointcloud(cloud, pose7: torch.Tensor):
+    """`PointCloud` version of `transform_points` (mask and colors pass
+    through)."""
+    from .pointcloud import PointCloud
+    return PointCloud(transform_points(cloud.points, pose7), cloud.colors,
+                      cloud.mask)
+
+
+def transform_pointcloud_kinect(cloud, pose7: torch.Tensor):
+    from .pointcloud import PointCloud
+    return PointCloud(transform_points_kinect(cloud.points, pose7),
+                      cloud.colors, cloud.mask)
+
+
+def decompose_pose_matrix(pose_matrix: torch.Tensor) -> torch.Tensor:
+    """4x4 homogeneous matrix -> 7-vector [t, q_xyzw]."""
+    return torch.cat([pose_matrix[:3, 3],
+                      rotmat_to_quat_xyzw(pose_matrix[:3, :3])])
+
+
+def compose_pose_matrix(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    m = torch.eye(4, dtype=r.dtype, device=r.device)
+    m[:3, :3] = r
+    m[:3, 3] = t
+    return m
 
 
 def quaternion_multiply_wxyz(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:

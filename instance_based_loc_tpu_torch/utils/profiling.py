@@ -50,3 +50,8 @@ class StageTimer:
             lines.append(f"{name}: total {self.totals[name]:.3f}s, "
                          f"n={self.counts[name]}, avg {avg * 1000:.1f}ms")
         return "\n".join(lines)
+
+    def as_dict(self) -> dict:
+        return {name: {"total_s": self.totals[name],
+                       "count": self.counts[name]}
+                for name in self.totals}

@@ -25,8 +25,10 @@ against fp32 attention (P is rounded to bf16 for P.V, as on the TPU) plus one
 bf16 step of the output. fp32 inputs are rounded to bf16 for the products, so
 they are held against the plain version on the same bf16-rounded q, k, v.
 
-MSDA gather: atol 1e-5 (16 fp32 products of the same values summed in
-another order; outputs are a few units in size).
+MSDA gather: atol 1e-5 (T fp32 products of the same values summed in
+another order; outputs are a few units in size), at T = 16 (K = 4 sampling
+points) and at every other tap count the kernel is built for (T = 4K,
+K = 1..8); other tap counts raise before a launch.
 
 The ViT attention's gradient (`VitAttentionFunction`: the kernel forward,
 a plain fp32 backward): dq, dk, dv against autograd of the plain version,
@@ -251,6 +253,44 @@ def test_msda_gather_kernel_matches_plain_version(s, h, d, q, dtype):
     assert msda_gather.launches == before + 1
     ref = msda_gather.msda_level_gather_reference(vmap, lin, coeff)
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps,dtype", [
+    (4, torch.bfloat16), (8, torch.bfloat16), (12, torch.float32),
+    (20, torch.bfloat16), (24, torch.float32), (28, torch.bfloat16),
+    (32, torch.bfloat16)])
+def test_msda_gather_kernel_any_sampling_points(taps, dtype):
+    """K = taps / 4 sampling points: each instantiation of the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(taps)
+    s, h, d, q = 10000, 8, 32, 700
+    vmap = torch.randn((s, h, d), generator=gen, device="cuda").to(dtype)
+    lin = torch.randint(0, s, (q, h, taps), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    coeff = torch.rand((q, h, taps), generator=gen, device="cuda")
+    coeff[:, :, ::3] = 0.0
+    before = dict(msda_gather.launches_by_taps)
+    out = msda_gather.msda_level_gather(vmap, lin, coeff)
+    torch.cuda.synchronize()
+    assert msda_gather.launches_by_taps[taps] == before.get(taps, 0) + 1
+    ref = msda_gather.msda_level_gather_reference(vmap, lin, coeff)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps", [2, 36])
+def test_msda_gather_kernel_raises_for_other_taps(taps):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    vmap = torch.zeros((100, 2, 16), device="cuda")
+    lin = torch.zeros((5, 2, taps), dtype=torch.int32, device="cuda")
+    coeff = torch.zeros((5, 2, taps), device="cuda")
+    before = msda_gather.launches
+    with pytest.raises(ValueError, match="T = 4K"):
+        msda_gather.msda_level_gather(vmap, lin, coeff)
+    assert msda_gather.launches == before
 
 
 def _served_memory():

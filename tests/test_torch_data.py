@@ -14,7 +14,10 @@ made with numpy from a seed:
 * The frustum cull and the device voxel grid against JAX at 1e-6, rows in
   the same order.
 * The dataset writers: the port's and JAX's give equal decoded frames and
-  equal pose files.
+  equal pose files; the two hm3d episode generators (`cli/gen_hm3d_episode`)
+  give equal decoded frames and byte-identical `.npy` depth, `poses.npy`
+  and `episode_info.txt`, and each loader reads its own package's episode
+  alike (poses within 1e-12, depth and pixels exact).
 * `format_results_report`: identical text; `pose_errors` within 1e-6.
 * ply: round trips between the two packages in both directions.
 """
@@ -436,3 +439,50 @@ def test_ply_round_trips_between_packages(tmp_path):
                 assert c is None
             else:
                 np.testing.assert_allclose(c, cols, atol=1 / 255)
+
+
+def test_hm3d_episode_generators_match(tmp_path):
+    """The port's gen_hm3d_episode against the JAX CLI: equal decoded
+    frames, equal `.npy` depth bytes, `poses.npy` and `episode_info.txt`;
+    then the port's loader reads the port's episode as the JAX loader
+    reads the JAX one (paths aside, exactly)."""
+    from instance_based_loc_tpu.cli.gen_hm3d_episode import (
+        generate_episode as jgen)
+    from instance_based_loc_tpu_torch.cli.gen_hm3d_episode import (
+        generate_episode as tgen, main)
+
+    jroot, troot = str(tmp_path / "jax"), str(tmp_path / "port")
+    jgen(jroot, timesteps=6, seed=2, height=30, width=40, focal=40.0)
+    main(["--out", troot, "--timesteps", "6", "--seed", "2", "--height",
+          "30", "--width", "40", "--focal", "40.0"])
+    for sub in ("rgb", "depth"):
+        assert (sorted(os.listdir(os.path.join(troot, sub)))
+                == sorted(os.listdir(os.path.join(jroot, sub))))
+    for name in sorted(os.listdir(os.path.join(jroot, "rgb"))):
+        np.testing.assert_array_equal(
+            read_png(os.path.join(troot, "rgb", name)),
+            np.asarray(Image.open(os.path.join(jroot, "rgb", name))))
+    for rel in ([os.path.join("depth", n)
+                 for n in os.listdir(os.path.join(jroot, "depth"))]
+                + ["poses.npy", "episode_info.txt"]):
+        with open(os.path.join(jroot, rel), "rb") as a, \
+                open(os.path.join(troot, rel), "rb") as b:
+            assert a.read() == b.read(), rel
+    assert tgen(str(tmp_path / "again"), timesteps=2) == str(
+        tmp_path / "again")
+
+    kw = dict(evaluation_indices=[5], focal_length_x=40.0,
+              focal_length_y=40.0, build_map=False)
+    jds = jloader.RGBDDataset(jroot, convention="hm3d", **kw)
+    tds = tloader.RGBDDataset(troot, convention="hm3d", device="cpu", **kw)
+    assert len(tds) == len(jds) == 6
+    assert tds.environment_indices == jds.environment_indices
+    for i in range(len(jds)):
+        np.testing.assert_allclose(tds.get_image_data(i)[2],
+                                   jds.get_image_data(i)[2], atol=1e-12,
+                                   rtol=0)
+        np.testing.assert_array_equal(tds.load_depth_scaled(i),
+                                      jds.load_depth_scaled(i))
+        np.testing.assert_array_equal(
+            tloader.load_rgb(tds.get_image_data(i)[0]),
+            jloader.load_rgb(jds.get_image_data(i)[0]))

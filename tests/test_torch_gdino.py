@@ -17,6 +17,11 @@ An HF `GroundingDinoForObjectDetection` `.bin` written by `transformers`
 * the grounders' `detect_all` on a frame: the same kept boxes (atol 1e-4)
   and scores (atol 1e-4) per keyword, and the port's text-length bucketing
   (pad ids to a multiple of 16) leaves the logits unchanged (atol 1e-5).
+* the grounder from the JAX package's pickled tree (`.pkl`, written as
+  tests/test_gdino_parity.py writes it, from the HF weights): the same
+  boxes and scores as the port's HF path (atol 1e-6: one set of fp32
+  weights, two routes to them) and as the JAX grounder on the same pickle
+  (atol 1e-4); a pickled FrozenDict raises.
 """
 
 import copy
@@ -244,3 +249,32 @@ def test_text_length_bucketing_keeps_logits(hf_checkpoint):
     np.testing.assert_allclose(l1[..., :5].numpy(), l0[..., :5].numpy(),
                                atol=1e-5, rtol=0)
     np.testing.assert_allclose(b1.numpy(), b0.numpy(), atol=1e-5, rtol=0)
+
+
+def test_grounder_from_pickled_jax_tree(hf_checkpoint, tmp_path):
+    import pickle
+    from flax.core import freeze
+    path, params, _ = hf_checkpoint
+    vocab = write_vocab(tmp_path / "vocab.txt")
+    ckpt = tmp_path / "params.pkl"
+    ckpt.write_bytes(pickle.dumps(params))
+    kw = dict(vocab_path=vocab, box_threshold=0.0, cfg=torch_config(),
+              compute_dtype="float32", device="cpu")
+    tg_pkl = tgdino.build_gdino_grounder(str(ckpt), **kw)
+    tg_hf = tgdino.build_gdino_grounder(path, **kw)
+    jg = jgdino.build_gdino_grounder(str(ckpt), vocab_path=vocab,
+                                     box_threshold=0.0, cfg=jax_config(),
+                                     compute_dtype="float32")
+    rgb = (np.random.default_rng(4).random((48, 64, 3)) * 255).astype(
+        np.uint8)
+    out = tg_pkl.detect_all(rgb, ["chair", "table"])
+    assert sum(len(b) for b, _ in out) > 0
+    for ref, atol in ((tg_hf.detect_all(rgb, ["chair", "table"]), 1e-6),
+                      (jg.detect_all(rgb, ["chair", "table"]), 1e-4)):
+        for (rb, rs), (tb, ts) in zip(ref, out):
+            np.testing.assert_allclose(tb, rb, atol=atol, rtol=0)
+            np.testing.assert_allclose(ts, rs, atol=atol, rtol=0)
+    frozen = tmp_path / "frozen.pkl"
+    frozen.write_bytes(pickle.dumps(freeze(params)))
+    with pytest.raises(ValueError, match="flax"):
+        tgdino.build_gdino_grounder(str(frozen), **kw)

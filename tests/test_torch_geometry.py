@@ -70,6 +70,96 @@ def case_transforms(rng):
     return [(np.asarray(a), b.numpy(), 1e-5) for a, b in pairs]
 
 
+def case_pose_helpers(rng):
+    euler = rng.uniform(-3, 3, size=(5, 3)).astype(np.float32)
+    deg = np.degrees(euler).astype(np.float32)
+    pts = rng.normal(size=(30, 3)).astype(np.float32)
+    cols = rng.uniform(size=(30, 3)).astype(np.float32)
+    mask = rng.uniform(size=30) < 0.7
+    q = rng.normal(size=4).astype(np.float32)
+    pose = np.concatenate([rng.normal(size=3), q / np.linalg.norm(q)]
+                          ).astype(np.float32)
+    jc = jpc.PointCloud(_j(pts), _j(cols), _j(mask))
+    tc = pointcloud.PointCloud(_t(pts), _t(cols), _t(mask))
+    r = np.asarray(jtf.quat_xyzw_to_rotmat(_j(pose[3:])))
+    m = np.asarray(jtf.compose_pose_matrix(_j(r), _j(pose[:3])))
+    out = [(jtf.euler_xyz_to_quat_xyzw(_j(euler)),
+            transforms.euler_xyz_to_quat_xyzw(_t(euler)), 1e-5),
+           (jtf.euler_xyz_to_quat_xyzw(_j(deg), degrees=True),
+            transforms.euler_xyz_to_quat_xyzw(_t(deg), degrees=True), 1e-5),
+           (m, transforms.compose_pose_matrix(_t(r), _t(pose[:3])), 0),
+           (jtf.decompose_pose_matrix(_j(m)),
+            transforms.decompose_pose_matrix(_t(m)), 1e-6)]
+    for jfn, tfn in ((jtf.transform_pointcloud, transforms.transform_pointcloud),
+                     (jtf.transform_pointcloud_kinect,
+                      transforms.transform_pointcloud_kinect)):
+        a, b = jfn(jc, _j(pose)), tfn(tc, _t(pose))
+        out += [(a.points, b.points, 1e-5), (a.colors, b.colors, 0),
+                (a.mask, b.mask, 0)]
+    return [(np.asarray(a), b.numpy() if isinstance(b, torch.Tensor) else b,
+             tol) for a, b, tol in out]
+
+
+def case_kabsch_helpers(rng):
+    p = rng.normal(size=(40, 3)).astype(np.float32)
+    q = (p @ _random_rotation(rng).T + rng.normal(size=3)
+         + 0.01 * rng.normal(size=p.shape)).astype(np.float32)
+    mask = rng.uniform(size=40) < 0.6
+    # the masked solve: float64 here, fp32 in JAX
+    return [(jkab.kabsch_masked(_j(p), _j(q), _j(mask)),
+             kabsch.kabsch_masked(_t(p), _t(q), _t(mask)).numpy(), 1e-4),
+            (jkab.kabsch_numpy(p[:5], q[:5]), kabsch.kabsch_numpy(p[:5], q[:5]),
+             0)]
+
+
+def case_distance_helpers(rng):
+    a = rng.normal(size=(20, 5)).astype(np.float32)
+    b = rng.normal(size=(30, 5)).astype(np.float32)
+    c = rng.normal(size=(5, 7)).astype(np.float32)
+    return [(np.asarray(jdist.gram(_j(a), _j(b))),
+             distance.gram(_t(a), _t(b)).numpy(), 1e-5),
+            (np.asarray(jdist.matmul_hp(_j(a), _j(c))),
+             distance.matmul_hp(_t(a), _t(c)).numpy(), 1e-5)]
+
+
+def case_depth_clouds(rng):
+    depth = rng.uniform(0.5, 1.5, size=(24, 32)).astype(np.float32)
+    depth[rng.uniform(size=depth.shape) < 0.1] = 0.0
+    rgb = rng.integers(0, 256, size=(24, 32, 3), dtype=np.uint8)
+    masks = rng.uniform(size=(3, 24, 32)) < 0.5
+    cfg = {"radius": 0.05, "radius_nb_points": 4}
+    out = []
+    for kw in ({}, {"rgb": rgb}, {"outlier_removal_config": None},
+               {"rgb": rgb, "outlier_removal_config": cfg}):
+        a = jbp.pointcloud_from_depth(_j(depth), 200.0, 180.0, **kw)
+        b = backprojection.pointcloud_from_depth(depth, 200.0, 180.0,
+                                                 device="cpu", **kw)
+        out += [(a.points, b.points, 1e-5), (a.colors, b.colors, 1e-6),
+                (a.mask, b.mask, 0)]
+    for removal in (True, False):
+        a = jbp.mask_pointclouds_from_depth(
+            _j(depth), _j(rgb), _j(masks), jnp.float32(200.0),
+            jnp.float32(180.0), apply_outlier_removal=removal, radius=0.05,
+            radius_nb_points=4)
+        b = backprojection.mask_pointclouds_from_depth(
+            _t(depth), _t(rgb), _t(masks), 200.0, 180.0,
+            apply_outlier_removal=removal, radius=0.05, radius_nb_points=4)
+        out += [(a.points, b.points, 1e-5), (a.colors, b.colors, 1e-6),
+                (a.mask, b.mask, 0)]
+    assert 0 < int(b.mask.sum()) < b.mask.numel()
+    pts = np.concatenate([rng.normal(size=(150, 3)) * 0.05,
+                          rng.uniform(-1, 1, size=(50, 3))]).astype(np.float32)
+    mask = rng.uniform(size=200) < 0.9
+    jc = jpc.PointCloud(_j(pts), _j(pts), _j(mask))
+    tc = pointcloud.PointCloud(_t(pts), _t(pts), _t(mask))
+    for a, b in ((jout.remove_radius_outliers(jc, 0.05, 6),
+                  outliers.remove_radius_outliers(tc, 0.05, 6)),
+                 (jout.remove_radius_outliers(jc, config=cfg),
+                  outliers.remove_radius_outliers(tc, config=cfg))):
+        out += [(a.points, b.points, 0), (a.mask, b.mask, 0)]
+    return [(np.asarray(a), b.numpy(), tol) for a, b, tol in out]
+
+
 def case_backprojection(rng):
     depth = rng.uniform(0.5, 4.0, size=(24, 32)).astype(np.float32)
     depth[rng.uniform(size=depth.shape) < 0.2] = 0.0

@@ -14,6 +14,8 @@ config never reaches it; the port gathers every level).
   and each product to bf16 before its fp32 sum and the port does not (the
   Pallas kernel's contract), so each of the terms may differ by 2^-8 of
   its size: |diff| <= 2^-7 * sum |coeff * v| + 1e-5, computed per output.
+* the same op with K = 2 and K = 8 sampling points (T = 8 and 32 taps per
+  level), fp32: atol 1e-5.
 """
 
 import numpy as np
@@ -62,15 +64,15 @@ def test_tap_index_weights_match_jax():
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=1e-6, rtol=0)
 
 
-def _msda_inputs(seed):
+def _msda_inputs(seed, k=4):
     rng = np.random.default_rng(seed)
     b, heads, d, q = 2, 2, 8, 60
     s = sum(hh * ww for hh, ww in SHAPES)
     value = rng.normal(size=(b, s, heads, d)).astype(np.float32)
     # spill past [0, 1] to pin zero padding in both packages
     loc = rng.uniform(-0.05, 1.05,
-                      size=(b, q, heads, len(SHAPES), 4, 2)).astype(np.float32)
-    w = rng.uniform(size=(b, q, heads, len(SHAPES), 4)).astype(np.float32)
+                      size=(b, q, heads, len(SHAPES), k, 2)).astype(np.float32)
+    w = rng.uniform(size=(b, q, heads, len(SHAPES), k)).astype(np.float32)
     w /= w.reshape(b, q, heads, -1).sum(-1)[..., None, None]
     return value, loc, w
 
@@ -93,3 +95,18 @@ def test_msda_matches_jax_above_gather_threshold(dtype):
         torch.from_numpy(w)).numpy()        # weights and taps are >= 0
     assert np.all(np.abs(tout - jout) <= 2 ** -7 * bound + 1e-5)
 
+
+
+@pytest.mark.parametrize("k", [2, 8])
+def test_msda_matches_jax_with_other_point_counts(k):
+    value, loc, w = _msda_inputs(3 + k, k)
+    jout = np.asarray(jmsda.multi_scale_deformable_attention(
+        jnp.asarray(value), SHAPES, jnp.asarray(loc), jnp.asarray(w)))
+    tout = tmsda.multi_scale_deformable_attention(
+        torch.from_numpy(value), SHAPES, torch.from_numpy(loc),
+        torch.from_numpy(w)).numpy()
+    assert tout.shape == jout.shape == (2, 60, 16)
+    np.testing.assert_allclose(tout, jout, atol=1e-5, rtol=0)
+    lin, coeff = tmsda._level_rows(torch.from_numpy(loc[0, :, :, 0]),
+                                   torch.from_numpy(w[0, :, :, 0]), *SHAPES[0])
+    assert lin.shape == coeff.shape == (60, 2, 4 * k)

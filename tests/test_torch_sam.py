@@ -10,8 +10,13 @@ against the JAX package's, on the CPU.
   IoU within atol 1e-4 (fp32 through 3 encoder blocks and the decoder).
 * a tiny official-layout `.pth` loaded by both packages' segmenters: the
   same masks on >= 99% of pixels (a logit near 0 may flip through the two
-  bilinear resizes, summed in another order); a canvas other than the
-  file's raises.
+  bilinear resizes, summed in another order), on the file's canvas and on
+  another one (the position tables resized while loading).
+* serving on another canvas: `resize_like_jax` against `jax.image.resize`
+  (cubic and linear, shrinking and enlarging) within 1e-6 of the largest
+  |input|; the resized
+  tables against the JAX package's within 1e-6; a 128 px checkpoint at 96
+  px against the JAX model within 1e-4 (fp32).
 * the on-device canvas transform against `jax.image.resize` (bilinear,
   antialiased when it shrinks): atol 1e-4 after normalisation (values of
   a few units; fp32 filter weights summed in another order).
@@ -129,29 +134,37 @@ def _hf_to_official(k: str) -> str:
     return k
 
 
-def test_official_checkpoint_loads_into_both_segmenters(tmp_path):
-    torch.manual_seed(0)
+def _official_state_dict(image_size=64, seed=0):
+    """A tiny HF SamModel's random weights (O(0.1), so masks carry
+    structure) in the official segment-anything layout, its tables sized
+    for an `image_size` canvas."""
+    torch.manual_seed(seed)
     vc = transformers.SamVisionConfig(
         hidden_size=32, num_hidden_layers=3, num_attention_heads=2,
-        image_size=64, patch_size=16, window_size=2, global_attn_indexes=[1],
-        output_channels=16, num_pos_feats=8)
+        image_size=image_size, patch_size=16, window_size=2,
+        global_attn_indexes=[1], output_channels=16, num_pos_feats=8)
     pc = transformers.SamPromptEncoderConfig(
-        hidden_size=16, image_embedding_size=4, image_size=64)
+        hidden_size=16, image_embedding_size=image_size // 16,
+        image_size=image_size)
     mc = transformers.SamMaskDecoderConfig(
         hidden_size=16, num_attention_heads=2, num_hidden_layers=2,
         iou_head_depth=3, iou_head_hidden_dim=16, mlp_dim=32)
     hf = transformers.SamModel(transformers.SamConfig(
         vision_config=vc.to_dict(), prompt_encoder_config=pc.to_dict(),
         mask_decoder_config=mc.to_dict()))
-    with torch.no_grad():     # O(0.1) weights, so masks carry structure
+    with torch.no_grad():
         for name, p in hf.named_parameters():
             if name.endswith("bias"):
                 p.zero_()
             else:
                 p.normal_(0.0, 0.3)
+    return {_hf_to_official(k): v.clone()
+            for k, v in hf.state_dict().items()}
+
+
+def test_official_checkpoint_loads_into_both_segmenters(tmp_path):
     path = str(tmp_path / "sam_tiny.pth")
-    torch.save({_hf_to_official(k): v.clone()
-                for k, v in hf.state_dict().items()}, path)
+    torch.save(_official_state_dict(), path)
 
     rgb = (np.random.default_rng(1).random((40, 56, 3)) * 255).astype(
         np.uint8)
@@ -170,10 +183,86 @@ def test_official_checkpoint_loads_into_both_segmenters(tmp_path):
                                        [boxes, boxes[:1]]),
                     [tm, tseg(rgb[::-1].copy(), boxes[:1])]):
         np.testing.assert_array_equal(a, b)
-    # the file's rel-pos tables fix the canvas: another one raises plainly
-    for cfg in (None, tsam.SamConfig(**{**TINY, "img_size": 128})):
-        with pytest.raises(ValueError, match="rel-pos tables"):
-            tsam.build_sam_segmenter(path, cfg=cfg, device="cpu")
+    # another canvas than the file's (its tables resized while loading):
+    # the two packages' masks again, from the file and from the state dict
+    # in memory
+    cfg = dict(TINY, img_size=128)
+    jm = jsam.build_sam_segmenter(path, cfg=jsam.SamConfig(**cfg),
+                                  compute_dtype="float32")(rgb, boxes)
+    for kw in ({"checkpoint_path": path},
+               {"state_dict": torch.load(path, weights_only=True)}):
+        tm = tsam.build_sam_segmenter(cfg=tsam.SamConfig(**cfg),
+                                      compute_dtype="float32", device="cpu",
+                                      **kw)(rgb, boxes)
+        assert jm.any() and not jm.all()
+        assert (tm == jm).mean() >= 0.99
+
+
+@pytest.mark.parametrize("shape,new,method", [
+    ((1, 64, 64, 8), (1, 48, 48, 8), "cubic"),      # SAM-H at 768 px
+    ((1, 8, 8, 4), (1, 12, 12, 4), "cubic"),
+    ((1, 16, 16, 4), (1, 5, 5, 4), "cubic"),
+    ((127, 16), (95, 16), "linear"),                # its global rel-pos
+    ((7, 6), (23, 6), "linear"),
+    ((33, 3), (4, 3), "linear")])
+def test_resize_like_jax_matches_jax_image_resize(shape, new, method):
+    """Shrinking (antialiased) and enlarging, values ~N(0, 1): within 1e-6
+    of the largest |input|. The weights are JAX's to an ulp; the sums are
+    fp32 in JAX and float64 here, and JAX's own weights, applied outside
+    its jit, differ from `jax.image.resize` by 1.5e-6 on the 64 -> 48
+    case."""
+    x = np.random.default_rng(len(shape) + new[1]).normal(
+        size=shape).astype(np.float32)
+    ref = np.asarray(jax.image.resize(jnp.asarray(x), new, method))
+    got = tsam.resize_like_jax(x, new, method)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=1e-6 * np.abs(x).max())
+
+
+@pytest.mark.parametrize("img_size", [32, 48, 128])
+def test_fit_canvas_matches_jax_tables(img_size):
+    """The tables the port loads for another canvas equal the JAX
+    package's (`_sam_flax_params` carried back by `params_from_jax`)
+    within 1e-6."""
+    sd = _official_state_dict()
+    cfg = dict(TINY, img_size=img_size)
+    flax = jsam._sam_flax_params({k: v.numpy() for k, v in sd.items()},
+                                 jsam.SamConfig(**cfg), jsam._OFFICIAL_NAMES)
+    ref = tsam.params_from_jax(flax, tsam.SamConfig(**cfg))
+    got = tsam.fit_canvas(sd, tsam.SamConfig(**cfg))
+    g = img_size // 16
+    assert got["image_encoder.pos_embed"].shape == (1, g, g, 32)
+    assert got["image_encoder.blocks.1.attn.rel_pos_h"].shape[0] == 2 * g - 1
+    assert got["image_encoder.blocks.0.attn.rel_pos_h"].shape[0] == 3
+    for key in ref:
+        if "pos_embed" in key or "rel_pos" in key:
+            np.testing.assert_allclose(got[key].numpy(), ref[key].numpy(),
+                                       atol=1e-6, rtol=0, err_msg=key)
+
+
+def test_sam_at_smaller_canvas_matches_jax():
+    """A 128 px checkpoint served at 96 px (grid 8 -> 6): mask logits and
+    IoU against the JAX model on the JAX package's resized tables, atol
+    1e-4 (fp32, as test_sam_model_matches_jax)."""
+    sd = _official_state_dict(image_size=128, seed=2)
+    cfg = dict(TINY, img_size=96)
+    jcfg = jsam.SamConfig(**cfg)
+    flax = jsam._sam_flax_params({k: v.numpy() for k, v in sd.items()},
+                                 jcfg, jsam._OFFICIAL_NAMES)
+    img = np.random.default_rng(3).normal(size=(96, 96, 3)).astype(
+        np.float32)
+    boxes = BOXES * 1.5
+    jmasks, jiou = jsam.Sam(jcfg).apply(flax, jnp.asarray(img),
+                                        jnp.asarray(boxes))
+    model = tsam.sam_from_state_dict(sd, tsam.SamConfig(**cfg))
+    with torch.no_grad():
+        masks, iou = model(torch.from_numpy(img), torch.from_numpy(boxes))
+    assert masks.shape == (3, 24, 24)
+    np.testing.assert_allclose(masks.numpy(), np.asarray(jmasks), atol=1e-4,
+                               rtol=0)
+    np.testing.assert_allclose(iou.numpy(), np.asarray(jiou), atol=1e-4,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("h,w", [(40, 56), (48, 32), (240, 320)])
