@@ -4,9 +4,9 @@
 Drives the port's main path on one CUDA card, in phases that each print a
 progress line and raise on failure:
 
-  1. build    nvcc builds the three kernels into the package's _build/, in
-              parallel, and logs each kernel's registers and spills
-              (ptxas) and the attention kernels' shared memory.
+  1. build    nvcc builds the four kernel sources into the package's
+              _build/, in parallel, and logs each kernel's registers and
+              spills (ptxas) and the attention kernels' shared memory.
   2. kernel   the ViT attention kernel against its plain PyTorch version on
               the card: at the DINOv2-base embedder's shape (16, 12, 257, 64)
               in bf16 (the TMA + wgmma path), also with valid_len < S, and
@@ -124,17 +124,25 @@ progress line and raise on failure:
                   (S = 50, less than one 64-key TMA tile) against its plain
                   version with phase 2's tolerance, timed beside SDPA.
  13. dator_train  DATOR training on the card:
-              (a) the ViT attention's autograd Function at the training
-                  shape (128, 12, 129, 64) bf16 (2 towers x 64 crops): the
+              (a) the ViT attention's autograd Function through the
+                  backward kernel (csrc/vit_attention_backward.cu, one
+                  launch of each of its two passes) at the training shape
+                  (128, 12, 129, 64) bf16 (2 towers x 64 crops), at
+                  (4, 12, 129, 64) with valid_len 100 in bf16 and fp32,
+                  and at the embedders' (16, 12, 257 / 50, 64): the
                   forward (the kernel) within phase 2's tolerance, dq, dk,
                   dv from a random upstream gradient within 2e-3 + 2^-7
-                  |ref| of autograd of the plain version; the kernel's
-                  forward, the plain fp32 backward and SDPA's forward and
-                  forward + backward timed on the device (SDPA a yardstick
-                  only; the port never calls it);
+                  |ref| (bf16) or 1e-5 (fp32) of the plain backward and of
+                  autograd of the plain version, zero dk and dv past
+                  valid_len; each backward pass, the plain backward, the
+                  kernel forward + backward and SDPA's forward, backward
+                  and forward + backward timed on the device (SDPA a
+                  yardstick only; the port never calls it), beside the
+                  backward's bound;
               (b) one training step at full width, 2 blocks per tower,
                   batch 16, with modality dropout and augmentation, fp32
-                  on the card (the kernel's fp32 path) against fp32 on the
+                  on the card (the forward's and the backward's fp32
+                  kernels, one launch of each a block) against fp32 on the
                   CPU from the same weights and draws: every loss term
                   within 1e-3 relative, each trainable tensor's update
                   within 1e-4 of its size, BatchNorm statistics within
@@ -146,12 +154,14 @@ progress line and raise on failure:
                   dataset, seeded random init) for 3 epochs with an eval
                   every epoch (val split): finite losses, finite rank-1
                   and mAP for every ablation, 11 kernel launches per
-                  training step and per eval batch; then --resume 3 for a
+                  training step and per eval batch and 22 backward passes
+                  per training step; then --resume 3 for a
                   fourth epoch, and params_latest.npz through
                   build_dator_embedder on the bench scene's crops;
               (d) 20 steps on one fixed batch of 64 at full width: the
                   mean loss of the last 5 below that of the first 5, 11
-                  launches per step; ms per step (CUDA events) and
+                  launches and 22 backward passes per step; ms per step
+                  (CUDA events) and
                   samples/s, one step's device busy ms, idle share and
                   largest kernels (torch.profiler), and the step's time
                   without the frozen weights' gradients (a probe of what
@@ -187,7 +197,8 @@ progress line and raise on failure:
                   launches at each tap count.
 
 The last lines are the card's name and power limit, a JSON line describing
-each kernel, and {"ok": true, "device": {...}}. Without a CUDA device, or
+each kernel (the backward's entry also gives each pass's time and its
+ptxas registers and spills), and {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits non-zero before printing any result.
 
 Run from the repository root: python3 chip_smoke.py
@@ -320,25 +331,32 @@ def ptxas_summary(log: str) -> list[str]:
 
 def phase_build():
     """nvcc for every kernel source, all started together; logs each
-    kernel's registers and spills (ptxas) and shared memory."""
+    kernel's registers and spills (ptxas) and shared memory. Returns each
+    source's ptxas lines."""
     from concurrent.futures import ThreadPoolExecutor
     from instance_based_loc_tpu_torch.ops import (
         attention, cuda_build, msda_gather, sam_attention)
     t0 = time.perf_counter()
-    sources = [attention.SOURCE, sam_attention.SOURCE, msda_gather.SOURCE]
+    sources = [attention.SOURCE, attention.BACKWARD_SOURCE,
+               sam_attention.SOURCE, msda_gather.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:
         infos = list(pool.map(cuda_build.build, sources))
+    ptxas = {}
     for source, info in zip(sources, infos):
         log(f"build: {source}: nvcc {info['seconds']:.1f} s -> "
             f"{info['path']}")
-        for line in ptxas_summary(info["log"]):
+        ptxas[source] = ptxas_summary(info["log"])
+        for line in ptxas[source]:
             log(f"build: ptxas {line}")
         print(info["log"], flush=True)
     log(f"build done in {time.perf_counter() - t0:.1f} s; dynamic shared "
         f"memory per block: vit_attention at (S = 257, bf16) "
-        f"{attention._smem_bytes(64, 257, 2)} B, sam_attention at SAM-H "
-        f"{sam_attention._smem_bytes(80, 64, 64)} B, at a 48x48 grid "
-        f"{sam_attention._smem_bytes(80, 48, 48)} B")
+        f"{attention._smem_bytes(64, 257, 2)} B, its backward at S = 129 / "
+        f"257 {attention._backward_smem_bytes(64, 129, 129, 2)} / "
+        f"{attention._backward_smem_bytes(64, 257, 257, 2)} B, "
+        f"sam_attention at SAM-H {sam_attention._smem_bytes(80, 64, 64)} B, "
+        f"at a 48x48 grid {sam_attention._smem_bytes(80, 48, 48)} B")
+    return ptxas
 
 
 def phase_kernel():
@@ -1904,6 +1922,89 @@ def device_breakdown(fn, top: int = 8):
     return rows[:top]
 
 
+def attention_gradient_case(gen, shape, dtype, valid):
+    """The Function's gradient through the backward kernel (one launch of
+    each pass) against the plain backward and autograd of the plain
+    forward; keys past valid_len must get exactly zero dk and dv. Returns
+    the largest |diff| to the plain backward."""
+    import torch
+    from instance_based_loc_tpu_torch.ops import attention
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                  for _ in range(4))
+    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = attention.backward_launches
+    out = attention.vit_attention(*ins, valid)
+    grads = torch.autograd.grad(out, ins, g)
+    torch.cuda.synchronize()
+    # the forward (the kernel) within phase 2's tolerance, on the rows the
+    # caller keeps
+    rows = shape[2] if valid is None else valid
+    fwd_ref = attention.vit_attention_reference(q, k, v, valid)
+    fatol, frtol = (1e-4, 2 ** -7) if dtype == torch.bfloat16 else (1e-5, 0)
+    diff = (out.float() - fwd_ref.float())[:, :, :rows].abs()
+    check((diff - fatol - frtol * fwd_ref.float()[:, :, :rows].abs())
+          .max().item() <= 0,
+          f"dator_train: kernel forward disagrees at {shape}: "
+          f"{diff.max().item()}")
+    check(attention.backward_launches == before + 2,
+          f"dator_train: the backward at {shape} launched "
+          f"{attention.backward_launches - before} passes, not 2")
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    autograd_ref = torch.autograd.grad(
+        attention.vit_attention_reference(*refs, valid), refs, g)
+    plain = attention.vit_attention_backward(q, k, v, g, valid)
+    atol, rtol = DATOR_GRAD_TOL if dtype == torch.bfloat16 else (1e-5, 0.0)
+    worst = 0.0
+    for name, a, r1, r2 in zip("qkv", grads, plain, autograd_ref):
+        for what, r in (("plain backward", r1), ("autograd", r2)):
+            diff = (a.float() - r.float()).abs()
+            err = diff.max().item()
+            check((diff - atol - rtol * r.float().abs()).max().item() <= 0,
+                  f"dator_train: d{name} at {shape} {dtype} valid_len="
+                  f"{valid} disagrees with the {what}: max|diff| {err}")
+            if what == "plain backward":
+                worst = max(worst, err)
+        log(f"dator_train: d{name} at {shape} {str(dtype)[6:]} valid_len="
+            f"{valid}: max|diff| {err:.3g} to autograd, "
+            f"{(a.float() - r1.float()).abs().max().item():.3g} to the plain "
+            f"backward, max|ref| {r1.float().abs().max().item():.3g} "
+            f"(tolerance {atol} + {rtol:.3g} |ref|)")
+    if valid is not None:
+        check(not grads[1][:, :, valid:].any()
+              and not grads[2][:, :, valid:].any(),
+              f"dator_train: keys past valid_len got a gradient at {shape}")
+    return worst
+
+
+def backward_times(q, k, v, g):
+    """Device times of the backward kernel's two passes, the plain
+    backward, SDPA's forward and its backward alone (a yardstick; the port
+    never calls it), and the backward's bound, at q's shape (bf16)."""
+    import torch
+    import torch.nn.functional as F
+    from instance_based_loc_tpu_torch.ops import attention
+    b, h, s, d = q.shape
+
+    def kernel():
+        attention._attention_backward(q, k, v, g, None)
+
+    dq_ms = device_ms(kernel, "vit_attention_bwd_dq")
+    dkdv_ms = device_ms(kernel, "vit_attention_bwd_dkdv")
+    plain_ms = device_ms(lambda: attention.vit_attention_backward(q, k, v, g))
+    sdpa_fwd_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    sq, sk, sv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(sq, sk, sv)
+    library_ms = device_ms(lambda: torch.autograd.grad(
+        out, (sq, sk, sv), g, retain_graph=True))
+    # reads q, k, v, g, writes dq, dk, dv; five products of 2 S^2 D each
+    bound_ms, bound_by = bound(7 * b * h * s * d * q.element_size(),
+                               10 * b * h * s * s * d, H100_BF16_FLOP_PER_S)
+    return {"ms": dq_ms + dkdv_ms, "dq_ms": dq_ms, "dkdv_ms": dkdv_ms,
+            "plain_ms": plain_ms, "sdpa_fwd_ms": sdpa_fwd_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
 def dator_cli(argv):
     """Runs the dator_train CLI, echoing and returning its output."""
     import io
@@ -1932,50 +2033,68 @@ def phase_dator_train(workdir, scene_data, card):
     from instance_based_loc_tpu_torch.ops import attention
     t0 = time.perf_counter()
 
-    # (a) the attention Function at the training shape: 2 towers x 64
-    shape = (128, 12, 129, 64)
+    # (a) the attention Function at the training shape (2 towers x 64), a
+    # masked tail, an fp32 case and the embedders' shapes: the backward
+    # kernel's dq, dk, dv against the plain backward and against autograd
+    # of the plain forward, then device times
     gen = torch.Generator(device="cuda").manual_seed(13)
+    errs = {}
+    for shape, dtype, valid in [((128, 12, 129, 64), torch.bfloat16, None),
+                                ((4, 12, 129, 64), torch.bfloat16, 100),
+                                ((4, 12, 129, 64), torch.float32, 100),
+                                ((16, 12, 257, 64), torch.bfloat16, None),
+                                ((16, 12, 50, 64), torch.bfloat16, None)]:
+        errs[shape, dtype] = attention_gradient_case(gen, shape, dtype, valid)
+    shape = (128, 12, 129, 64)
+    b, h, s, d = shape
     q, k, v, g = (torch.randn(shape, generator=gen, device="cuda")
                   .to(torch.bfloat16) for _ in range(4))
-    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    out = attention.vit_attention(*ins)
-    grads = torch.autograd.grad(out, ins, g)
-    ref_ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    ref = attention.vit_attention_reference(*ref_ins)
-    ref_grads = torch.autograd.grad(ref, ref_ins, g)
-    torch.cuda.synchronize()
-    atol, rtol = 1e-4, 2 ** -7                 # phase 2's bf16 tolerance
-    diff = (out.float() - ref.float()).abs()
-    fwd_err = diff.max().item()
-    check((diff - atol - rtol * ref.float().abs()).max().item() <= 0,
-          f"dator_train: kernel forward disagrees at {shape}: {fwd_err}")
-    gatol, grtol = DATOR_GRAD_TOL
-    for name, a, r in zip("qkv", grads, ref_grads):
-        d = (a.float() - r.float()).abs()
-        log(f"dator_train: d{name} at {shape} bf16: max|diff| "
-            f"{d.max().item():.3g}, max|ref| {r.float().abs().max().item():.3g} "
-            f"(tolerance {gatol} + {grtol:.3g} |ref|)")
-        check((d - gatol - grtol * r.float().abs()).max().item() <= 0,
-              f"dator_train: d{name} disagrees: max|diff| {d.max().item()}")
+    bwd = backward_times(q, k, v, g)
     kernel_ms = device_ms(lambda: attention.vit_attention(q, k, v),
-                          "vit_attention")
-    bwd_ms = device_ms(lambda: attention.vit_attention_backward(q, k, v, g))
+                          "vit_attention_wgmma")
     plain_ms = time_ms(lambda: attention.vit_attention_reference(q, k, v))
-    sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    kins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    kernel_fb_ms = device_ms(lambda: torch.autograd.grad(
+        attention.vit_attention(*kins), kins, g))
     sq, sk, sv = (x.clone().requires_grad_(True) for x in (q, k, v))
     sdpa_fb_ms = device_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(sq, sk, sv), (sq, sk, sv), g))
-    b, h, s, d = shape
-    bound_ms, bound_by = bound(4 * b * h * s * d * 2, 4 * b * h * s * s * d,
-                               H100_BF16_FLOP_PER_S)
-    log(f"dator_train: at {shape} bf16 ({card}): kernel forward max|diff| "
-        f"{fwd_err:.3g}, {kernel_ms:.4f} ms device (bound {bound_ms * 1e3:.2f} us by "
-        f"{bound_by}), Function backward (plain torch, fp32) {bwd_ms:.4f} ms "
-        f"device, plain forward {plain_ms:.4f} ms; sdpa forward "
-        f"{sdpa_ms:.4f} ms, forward + backward {sdpa_fb_ms:.4f} ms device")
+    fwd_bound_ms, fwd_bound_by = bound(4 * b * h * s * d * 2,
+                                       4 * b * h * s * s * d,
+                                       H100_BF16_FLOP_PER_S)
+    log(f"dator_train: at {shape} bf16 ({card}): kernel forward "
+        f"{kernel_ms:.4f} ms device (bound {fwd_bound_ms * 1e3:.2f} us by "
+        f"{fwd_bound_by}), plain forward {plain_ms:.4f} ms; backward kernel "
+        f"{bwd['ms']:.4f} ms (dq pass {bwd['dq_ms']:.4f} + dk/dv pass "
+        f"{bwd['dkdv_ms']:.4f}; bound {bwd['bound_ms'] * 1e3:.2f} us by "
+        f"{bwd['bound_by']}), plain backward (fp32 torch) "
+        f"{bwd['plain_ms']:.4f} ms; kernel forward + backward "
+        f"{kernel_fb_ms:.4f} ms; sdpa forward {bwd['sdpa_fwd_ms']:.4f} ms, "
+        f"backward {bwd['library_ms']:.4f} ms, forward + backward "
+        f"{sdpa_fb_ms:.4f} ms device")
+    for eshape in [(16, 12, 257, 64), (16, 12, 50, 64)]:
+        e = backward_times(*(torch.randn(eshape, generator=gen, device="cuda")
+                             .to(torch.bfloat16) for _ in range(4)))
+        log(f"dator_train: backward at {eshape} bf16 ({card}): kernel "
+            f"{e['ms']:.4f} ms (dq {e['dq_ms']:.4f} + dk/dv "
+            f"{e['dkdv_ms']:.4f}; bound {e['bound_ms'] * 1e3:.2f} us by "
+            f"{e['bound_by']}), plain {e['plain_ms']:.4f} ms, sdpa backward "
+            f"{e['library_ms']:.4f} ms, sdpa forward {e['sdpa_fwd_ms']:.4f} "
+            f"ms device")
+    backward = {"name": "vit_attention_backward", "route": "cuda",
+                "source": "instance_based_loc_tpu_torch/csrc/"
+                          "vit_attention_backward.cu",
+                "replaces": "instance_based_loc_tpu/models/dator/"
+                            "transreid_vit.py:79",
+                "launches": None,
+                "max_abs_err": errs[shape, torch.bfloat16],
+                "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+                "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+                "library_ms": bwd["library_ms"],
+                "passes_ms": {"dq": bwd["dq_ms"], "dkdv": bwd["dkdv_ms"]}}
 
     # (b) one step at full width, 2 blocks per tower, batch 16, fp32: the
-    # card (the kernel's fp32 path) against the CPU (plain attention)
+    # card (the kernels' fp32 paths) against the CPU (plain attention)
     # base_lr 100: the first update's rate is 0.01 base = 1.0, so each
     # update is large against the fp32 spacing of its weights (at the
     # default 8e-5 an update is ~100 ulps of a weight, and the comparison
@@ -1995,7 +2114,7 @@ def phase_dator_train(workdir, scene_data, card):
     labels = torch.arange(4).repeat_interleave(4)
     draws = train.make_step_draws(torch.Generator().manual_seed(13), 16,
                                   True, True)
-    attention.launches = 0
+    attention.launches = attention.backward_launches = 0
     m_dev = train.train_step(dev, rgb.cuda(), depth.cuda(), labels.cuda(),
                              train.StepDraws(draws.modality_p.cuda(),
                                              train.AugmentDraws(*(
@@ -2003,9 +2122,12 @@ def phase_dator_train(workdir, scene_data, card):
                                                  draws.augment))))
     torch.cuda.synchronize()
     step_launches = attention.launches
+    step_bwd = attention.backward_launches
     m_cpu = train.train_step(cpu, rgb, depth, labels, draws)
-    check(step_launches == mcfg.backbone.num_blocks,
-          f"dator_train: {step_launches} kernel launches in a 2-block step")
+    check(step_launches == mcfg.backbone.num_blocks
+          and step_bwd == 2 * mcfg.backbone.num_blocks,
+          f"dator_train: {step_launches} kernel launches and {step_bwd} "
+          f"backward passes in a 2-block step")
     for key_ in m_cpu:
         a, r = float(m_dev[key_]), float(m_cpu[key_])
         log(f"dator_train: step {key_}: card {a:.6f}, cpu {r:.6f}")
@@ -2052,11 +2174,12 @@ def phase_dator_train(workdir, scene_data, card):
             "eval.train_split=false"]
     n_val = len(scan_instance_dirs(f"{reid}/val"))
     evals_per_epoch = 3 * -(-n_val // 64)
-    attention.launches = 0
+    attention.launches = attention.backward_launches = 0
     t1 = time.perf_counter()
     state, text = dator_cli(opts + ["train.epochs=3"])
     torch.cuda.synchronize()
     cli_launches = attention.launches
+    cli_bwd = attention.backward_launches
     cli_s = time.perf_counter() - t1
     bb = state.model.cfg.backbone
     check((bb.hidden_size, bb.num_blocks, bb.img_height, bb.img_width,
@@ -2081,16 +2204,21 @@ def phase_dator_train(workdir, scene_data, card):
     check(cli_launches == expected,
           f"dator_train cli: {cli_launches} kernel launches, expected "
           f"{expected} (11 per training step and per eval batch)")
-    attention.launches = 0
+    check(cli_bwd == 2 * bb.num_blocks * state.step,
+          f"dator_train cli: {cli_bwd} backward passes, expected "
+          f"{2 * bb.num_blocks * state.step} (11 of each pass a step)")
+    attention.launches = attention.backward_launches = 0
     resumed, text = dator_cli(opts + ["train.epochs=4", "--resume", "3"])
     torch.cuda.synchronize()
     resume_launches = attention.launches
+    resume_bwd = attention.backward_launches
     check("resumed from" in text and resumed.step == 4 * spe,
           f"dator_train cli: --resume 3 ended at step {resumed.step}, "
           f"expected {4 * spe}")
-    check(resume_launches == bb.num_blocks * (spe + evals_per_epoch),
-          f"dator_train cli: {resume_launches} launches in the resumed "
-          f"epoch")
+    check(resume_launches == bb.num_blocks * (spe + evals_per_epoch)
+          and resume_bwd == 2 * bb.num_blocks * spe,
+          f"dator_train cli: {resume_launches} launches and {resume_bwd} "
+          f"backward passes in the resumed epoch")
     embed = get_embedder("dator", device="cuda",
                          checkpoint_path=f"{out_dir}/params_latest.npz")
     _, _, frames, _ = scene_data
@@ -2120,7 +2248,7 @@ def phase_dator_train(workdir, scene_data, card):
     state = train.create_train_state(mcfg, tcfg, seed=1, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     step_losses = []
-    attention.launches = 0
+    attention.launches = attention.backward_launches = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     for i in range(20):
@@ -2132,6 +2260,7 @@ def phase_dator_train(workdir, scene_data, card):
     end.record()
     torch.cuda.synchronize()
     learn_launches = attention.launches
+    learn_bwd = attention.backward_launches
     step_ms = start.elapsed_time(end) / 15
     step_losses = [float(x) for x in step_losses]
     first, last = np.mean(step_losses[:5]), np.mean(step_losses[-5:])
@@ -2139,11 +2268,13 @@ def phase_dator_train(workdir, scene_data, card):
         f"{np.round(step_losses, 4).tolist()}; first 5 mean {first:.4f}, "
         f"last 5 mean {last:.4f}; {step_ms:.2f} ms per step (CUDA events, "
         f"steps 5-19), {64e3 / step_ms:.1f} samples/s; vit_attention "
-        f"launches {learn_launches}")
+        f"launches {learn_launches}, backward passes {learn_bwd}")
     check(bool(np.isfinite(step_losses).all()) and last < first,
           f"dator_train: the loss did not fall: {step_losses}")
-    check(learn_launches == 20 * mcfg.backbone.num_blocks,
-          f"dator_train: {learn_launches} launches in 20 steps")
+    check(learn_launches == 20 * mcfg.backbone.num_blocks
+          and learn_bwd == 40 * mcfg.backbone.num_blocks,
+          f"dator_train: {learn_launches} launches and {learn_bwd} backward "
+          f"passes in 20 steps")
     def one_step():
         train.train_step(state, rgb, depth, pids,
                          train.make_step_draws(gen, 64, True, False))
@@ -2168,7 +2299,8 @@ def phase_dator_train(workdir, scene_data, card):
     log(f"dator_train: without the frozen weights' gradients a step takes "
         f"{probe_ms:.2f} ms ({step_ms - probe_ms:.2f} ms less; {card})")
     log(f"dator_train phase done in {time.perf_counter() - t0:.1f} s")
-    return cli_launches + resume_launches + learn_launches
+    backward["launches"] = cli_bwd + resume_bwd + learn_bwd
+    return cli_launches + resume_launches + learn_launches, backward
 
 
 # phase 14 gates (set before the first run on the card)
@@ -2619,7 +2751,7 @@ def main() -> int:
 
     card = gpu_name_and_power_limit()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    phase_build()
+    ptxas = phase_build()
     kernel = phase_kernel()
     scene_data = bench_scene()
     with tempfile.TemporaryDirectory() as workdir:
@@ -2643,12 +2775,17 @@ def main() -> int:
         phase_serve(color_memory, scene_data)
         kernel["launches"] += phase_dator(workdir, scene_data)
         kernel["launches"] += phase_clip_loc(workdir)
-        kernel["launches"] += phase_dator_train(workdir, scene_data, card)
+        train_launches, backward = phase_dator_train(workdir, scene_data,
+                                                     card)
+        kernel["launches"] += train_launches
         shapes = phase_rest(workdir, cascade)
     log(f"all phases passed in {time.perf_counter() - T_START:.1f} s")
 
     print(card, flush=True)
-    print(json.dumps({"kernels": [kernel, sam, msda] + shapes}), flush=True)
+    from instance_based_loc_tpu_torch.ops import attention
+    backward["ptxas"] = ptxas[attention.BACKWARD_SOURCE]
+    print(json.dumps({"kernels": [kernel, sam, msda, backward] + shapes}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels
-// (vit_attention.cu, sam_attention.cu): tensor maps for TMA, mbarriers,
-// TMA tile loads, wgmma shared-memory descriptors and the wgmma products
-// the kernels issue.
+// (vit_attention.cu, vit_attention_backward.cu, sam_attention.cu): tensor
+// maps for TMA, mbarriers, TMA tile loads, wgmma shared-memory descriptors,
+// the wgmma products the kernels issue, and warp reductions.
 //
 // Shared-memory tiles are rows of 64 bf16 (128 B) under the 128-byte swizzle,
 // or rows of 16 bf16 (32 B) under the 32-byte swizzle; TMA writes them and
@@ -65,11 +65,23 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* base, int heads,
   const CUtensorMapSwizzle swizzle = box_cols == 64
                                          ? CU_TENSOR_MAP_SWIZZLE_128B
                                          : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-            const_cast<void*>(base), dims, strides, box, elem_strides,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  auto encode = [&] {
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+              const_cast<void*>(base), dims, strides, box, elem_strides,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = encode();
+  if (r == CUDA_ERROR_INVALID_CONTEXT) {
+    // The driver encodes only with a context current on the calling thread,
+    // and a thread on which no CUDA call has run yet (autograd's backward
+    // thread) has none: cudaFree(0) makes the device's primary context
+    // current there.
+    cudaFree(0);
+    r = encode();
+  }
+  return r == CUDA_SUCCESS;
 }
 
 // Raise a kernel's dynamic shared-memory limit once per size, not per
@@ -216,6 +228,35 @@ __device__ __forceinline__ float exp2_fast(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two fp32 values as bf16 A fragment words: the high part (the top 16 bits
+// of each) and the remainder (exact in fp32) rounded to bf16, so the two
+// products that take them keep ~16 bits of the values.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+  lo = pack_bf16(a - __uint_as_float(__float_as_uint(a) & 0xffff0000u),
+                 b - __uint_as_float(__float_as_uint(b) & 0xffff0000u));
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Element (row, col) of a 64-row tile of 64 bf16 columns under the 128-byte
+// swizzle.
+__device__ __forceinline__ const __nv_bfloat16* sw128_at(
+    const unsigned char* tile, int row, int col) {
+  return reinterpret_cast<const __nv_bfloat16*>(
+      tile + row * 128 + (((col / 8) ^ (row % 8)) * 16) + (col % 8) * 2);
 }
 
 // Register fragments (PTX wgmma layouts): thread t of the warpgroup, warp

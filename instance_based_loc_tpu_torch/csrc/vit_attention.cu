@@ -62,23 +62,14 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kRowsPerBlock = 64;
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // CUDA-core kernel (fp32). Shared memory: K and V (valid_len rows each, one
 // word of padding per row), then one query row and one score row per warp.
 __global__ void __launch_bounds__(kWarps * 32)
     vit_attention_simt(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
                        int s, int d, int valid_len, float scale) {
+  using hopper::warp_max;
+  using hopper::warp_sum;
   extern __shared__ __align__(16) unsigned char smem[];
   const int stride = d + 1;
   float* k_s = reinterpret_cast<float*>(smem);
@@ -156,13 +147,6 @@ size_t tc_smem_bytes(int valid_len) {
   return 1024 + (2 * chunks + kConsumers) * kTileBytes +
          (chunks + kConsumers) * sizeof(uint64_t) +
          (kD + chunks * kTile) * sizeof(float);
-}
-
-// Element (row, col) of a 64-row tile under the 128-byte swizzle.
-__device__ __forceinline__ const __nv_bfloat16* sw128_at(
-    const unsigned char* tile, int row, int col) {
-  return reinterpret_cast<const __nv_bfloat16*>(
-      tile + row * 128 + (((col / 8) ^ (row % 8)) * 16) + (col % 8) * 2);
 }
 
 // One step of one query tile over keys key0 .. key0 + N - 1 (N = 64, or 16
@@ -247,16 +231,8 @@ __device__ __forceinline__ void vit_step(float (&o)[32], float& m_lo,
       p[3] = exp2_fast(fmaf(sc[4 * j + 3], scale_log2, -m_hi));
       l_lo += p[0] + p[1];
       l_hi += p[2] + p[3];
-      float r[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        r[e] = p[e] - __uint_as_float(__float_as_uint(p[e]) & 0xffff0000u);
-      pa[kk][2 * h] =
-          __byte_perm(__float_as_uint(p[0]), __float_as_uint(p[1]), 0x7632);
-      pa[kk][2 * h + 1] =
-          __byte_perm(__float_as_uint(p[2]), __float_as_uint(p[3]), 0x7632);
-      pr[kk][2 * h] = pack_bf16(r[0], r[1]);
-      pr[kk][2 * h + 1] = pack_bf16(r[2], r[3]);
+      split_bf16(p[0], p[1], pa[kk][2 * h], pr[kk][2 * h]);
+      split_bf16(p[2], p[3], pa[kk][2 * h + 1], pr[kk][2 * h + 1]);
     }
   }
   wgmma_fence();

@@ -20,9 +20,12 @@ each projection one batched matmul over the tower axis, and each block's
 attention ONE call of `ops.attention.vit_attention` over (T * B) heads
 batches, i.e. (32, 12, 129, 64) bf16 for two towers of a 16-crop batch at
 256x128. On the card that is the hand-written kernel of
-`csrc/vit_attention.cu`. The JAX tower computes its attention with an
-einsum, not a Pallas call; routing it through the ported ViT kernel is the
-port's design choice (same function: softmax(q kᵀ / √D) v, no mask).
+`csrc/vit_attention.cu`, and in training its gradient the hand-written
+backward of `csrc/vit_attention_backward.cu` (through
+`ops.attention.VitAttentionFunction`). The JAX tower computes its attention
+with an einsum, not a Pallas call, and XLA differentiates it; routing it
+through the ported ViT kernel and its backward is the port's design choice
+(same function: softmax(q kᵀ / √D) v, no mask).
 
 Precision follows the JAX module: the patch embedding, projections and
 MLP compute in `cfg.dtype` (bf16 by default; their weights are stored in

@@ -1,4 +1,5 @@
-"""ViT multi-head attention: the CUDA kernel's wrapper and its plain version.
+"""ViT multi-head attention: the CUDA kernels' wrappers and their plain
+versions.
 
 Counterpart of `instance_based_loc_tpu/ops/pallas/attention.py`
 (`fused_attention`, kernel `_attn_kernel`). The kernel is
@@ -11,11 +12,15 @@ the kernel.
 
 Training differentiates through it: when an input requires a gradient,
 `vit_attention` runs as `VitAttentionFunction`, whose forward is the same
-call (the kernel on the card) and whose backward recomputes
-P = softmax(q kᵀ / √D) in fp32 from the saved q, k and v with plain torch
-ops. The JAX package has no backward kernel either: its DATOR towers
-compute attention as einsums and XLA differentiates them, so this backward
-is the counterpart of that autodiff, not of a TPU kernel.
+call (the kernel on the card) and whose backward is `_attention_backward`:
+on the card the two passes of `csrc/vit_attention_backward.cu` (dq with
+each row's log-sum-exp and D, then dk and dv), on the CPU
+`vit_attention_backward`, the plain version, which recomputes
+P = softmax(q kᵀ / √D) in fp32 from the saved q, k and v.
+`backward_launches` counts the backward kernel's launches, one per pass.
+The JAX package has no backward kernel: its DATOR towers compute attention
+as einsums and XLA differentiates them, so this backward is the
+counterpart of that autodiff, not of a TPU kernel.
 """
 
 from __future__ import annotations
@@ -28,12 +33,15 @@ import torch
 from . import cuda_build
 
 SOURCE = "vit_attention.cu"
+BACKWARD_SOURCE = "vit_attention_backward.cu"
 # an H100's per-block dynamic shared memory limit (227 KB)
 MAX_SHARED_BYTES = 232_448
 
 launches = 0
+backward_launches = 0
 
 _lib = None
+_backward_lib = None
 
 
 def _library():
@@ -50,9 +58,35 @@ def _library():
     return _lib
 
 
+def _backward_library():
+    global _backward_lib
+    if _backward_lib is None:
+        lib = cuda_build.load(BACKWARD_SOURCE)
+        # q, k, v, g, dq, lse, delta / q, k, v, g, lse, delta, dk, dv
+        lib.vit_attention_backward_dq_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.vit_attention_backward_dkdv_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.vit_attention_backward_dq_launch.restype = ctypes.c_int
+        lib.vit_attention_backward_dkdv_launch.restype = ctypes.c_int
+        lib.vit_attention_backward_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.vit_attention_backward_smem_bytes.restype = ctypes.c_size_t
+        _backward_lib = lib
+    return _backward_lib
+
+
 @functools.lru_cache(maxsize=None)
 def _smem_bytes(d: int, valid_len: int, elem_bytes: int) -> int:
     return _library().vit_attention_smem_bytes(d, valid_len, elem_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_smem_bytes(d: int, s: int, valid_len: int,
+                         elem_bytes: int) -> int:
+    return _backward_library().vit_attention_backward_smem_bytes(
+        d, s, valid_len, elem_bytes)
 
 
 def vit_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,8 +130,9 @@ def vit_attention_backward(q: torch.Tensor, k: torch.Tensor,
 
 class VitAttentionFunction(torch.autograd.Function):
     """`vit_attention` with a gradient: the forward is the kernel on the
-    card (the plain version on the CPU), the backward
-    `vit_attention_backward`."""
+    card (the plain version on the CPU), the backward `_attention_backward`
+    (the backward kernel on the card, `vit_attention_backward` on the
+    CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid_len):
@@ -108,7 +143,7 @@ class VitAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = vit_attention_backward(q, k, v, grad_out, ctx.valid_len)
+        dq, dk, dv = _attention_backward(q, k, v, grad_out, ctx.valid_len)
         return dq, dk, dv, None
 
 
@@ -143,27 +178,37 @@ def _check(q, k, v, valid_len) -> int:
     return valid
 
 
+def _kernel_check(q, k, v, valid_len, what: str) -> int:
+    """The checks of the forward and backward kernels beyond `_check`;
+    returns the valid key count."""
+    valid = _check(q, k, v, valid_len)
+    b, h, s, d = q.shape
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the {what} kernel takes bf16 or fp32; got "
+                         f"{q.dtype}")
+    if q.dtype == torch.bfloat16 and d != 64:
+        raise ValueError(f"the {what} kernel takes bf16 only with head size "
+                         f"64 (the ViT embedders'); got {d}")
+    if b * h > 65535:
+        raise ValueError(f"the {what} kernel takes at most 65535 "
+                         f"batch*heads; got {b * h}")
+    if q.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {q.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("bf16 q, k and v must be 16-byte aligned (TMA)")
+    return valid
+
+
 def _attention(q, k, v, valid_len):
     """The forward: the plain version for CPU tensors, else the kernel."""
     global launches
-    valid = _check(q, k, v, valid_len)
-    b, h, s, d = q.shape
     if q.device.type == "cpu":
+        _check(q, k, v, valid_len)
         return vit_attention_reference(q, k, v, valid_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention path for device {q.device}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the kernel takes bf16 or fp32; got {q.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("q, k and v must be contiguous")
-    if q.dtype == torch.bfloat16 and d != 64:
-        raise ValueError(f"the kernel takes bf16 only with head size 64 (the "
-                         f"ViT embedders'); got {d}")
-    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("bf16 q, k and v must be 16-byte aligned (TMA)")
-    if b * h > 65535:
-        raise ValueError(f"the kernel takes at most 65535 batch*heads; "
-                         f"got {b * h}")
+    valid = _kernel_check(q, k, v, valid_len, "attention")
+    b, h, s, d = q.shape
     is_bf16 = int(q.dtype == torch.bfloat16)
     smem = _smem_bytes(d, valid, 2 if is_bf16 else 4)
     if smem > MAX_SHARED_BYTES:
@@ -181,3 +226,63 @@ def _attention(q, k, v, valid_len):
                            f"error {err}")
     launches += 1
     return out
+
+
+def _backward_check(q, k, v, grad_out, valid_len) -> int:
+    """Every check of the backward kernel, in the order the CPU tests hold
+    it to (those that need no card first, the shared-memory limit last);
+    returns the valid key count."""
+    if grad_out.shape != q.shape:
+        raise ValueError(f"grad_out must have q's shape {tuple(q.shape)}; "
+                         f"got {tuple(grad_out.shape)}")
+    if grad_out.dtype != q.dtype:
+        raise ValueError(f"grad_out must have q's dtype {q.dtype}; got "
+                         f"{grad_out.dtype}")
+    if grad_out.device != q.device:
+        raise ValueError("grad_out must lie on q's device")
+    valid = _kernel_check(q, k, v, valid_len, "attention backward")
+    b, h, s, d = q.shape
+    smem = _backward_smem_bytes(d, s, valid, q.element_size())
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"a head of the backward needs {smem} B of shared "
+                         f"memory, above the {MAX_SHARED_BYTES} B a block "
+                         f"can have")
+    return valid
+
+
+def _attention_backward(q, k, v, grad_out, valid_len):
+    """`VitAttentionFunction`'s backward: the plain version for CPU tensors,
+    else the kernel's two passes, (dq, dk, dv) in the input type."""
+    global backward_launches
+    if q.device.type == "cpu" and grad_out.device.type == "cpu":
+        return vit_attention_backward(q, k, v, grad_out, valid_len)
+    valid = _backward_check(q, k, v, grad_out, valid_len)
+    b, h, s, d = q.shape
+    # autograd hands the towers' gradient over as a strided view
+    g = grad_out.contiguous()
+    if g.data_ptr() % 16:        # TMA reads 16-byte aligned rows
+        g = g.clone()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty((2, b * h * s), dtype=torch.float32, device=q.device)
+    lse, delta = stats[0], stats[1]
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    args = (b * h, s, d, valid, 1.0 / d ** 0.5, is_bf16)
+    lib = _backward_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.vit_attention_backward_dq_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), lse.data_ptr(), delta.data_ptr(), *args, stream)
+        if err != 0:
+            raise RuntimeError(f"vit_attention backward (dq pass) launch "
+                               f"failed with CUDA error {err}")
+        backward_launches += 1
+        err = lib.vit_attention_backward_dkdv_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *args, stream)
+        if err != 0:
+            raise RuntimeError(f"vit_attention backward (dk/dv pass) launch "
+                               f"failed with CUDA error {err}")
+        backward_launches += 1
+    return dq, dk, dv

@@ -31,11 +31,18 @@ points) and at every other tap count the kernel is built for (T = 4K,
 K = 1..8); other tap counts raise before a launch.
 
 The ViT attention's gradient (`VitAttentionFunction`: the kernel forward,
-a plain fp32 backward): dq, dk, dv against autograd of the plain version,
-bf16 |diff| <= 2e-3 + 2^-7 |ref| (both round fp32 gradients to bf16 from
-inputs the forward rounded alike), fp32 1e-5; one DATOR training step on
-the card (fp32, the kernel's fp32 path, hidden 64) launches the kernel
-once per tower block and gives the CPU step's loss within 1e-4 relative.
+the backward kernel's two passes): dq, dk, dv against autograd of the
+plain version, bf16 |diff| <= 2e-3 + 2^-7 |ref| (the kernel rounds P and
+dS to bf16 once for their products, 2^-9 of each term, and both sides
+round fp32 gradients to bf16), fp32 1e-5; at the training shape, the
+embedders' S = 257 and S = 50, masked tails (keys past valid_len get
+exactly zero dk and dv), short last chunks, a head shorter than a tile
+(S = 5) and a strided upstream gradient, each with one launch of each
+backward pass (S = 129 and 257 put one row and key on the producer
+warpgroup's fp32 path); one DATOR training step on the card (fp32,
+the kernels' fp32 paths, hidden 64) launches the forward kernel and the
+backward's two passes once per tower block and gives the CPU step's loss
+within 1e-4 relative.
 
 The query program's CUDA-graph replay (`ops/query_graph.py`): on a small
 scene, every `localise_many` result of the replay equals the eager run's
@@ -97,29 +104,56 @@ def test_cuda_kernel_matches_plain_version(shape, dtype, valid_len, tol):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,dtype,valid_len,tol", [
-    ((128, 12, 129, 64), torch.bfloat16, None, (2e-3, 2 ** -7)),
-    ((4, 12, 129, 64), torch.bfloat16, 100, (2e-3, 2 ** -7)),
-    ((2, 3, 70, 32), torch.float32, 33, FP32_TOL),
+@pytest.mark.parametrize("shape,dtype,valid_len,strided,tol", [
+    ((128, 12, 129, 64), torch.bfloat16, None, False, (2e-3, 2 ** -7)),
+    ((4, 12, 129, 64), torch.bfloat16, 100, False, (2e-3, 2 ** -7)),
+    # the embedders' shapes: DINOv2-base (S = 257, one key and one query
+    # row for the producer warp) and CLIP-B/32 (S = 50, one short tile)
+    ((16, 12, 257, 64), torch.bfloat16, None, False, (2e-3, 2 ** -7)),
+    ((16, 12, 50, 64), torch.bfloat16, None, False, (2e-3, 2 ** -7)),
+    # the towers hand the Function a transposed view as its gradient
+    ((16, 12, 129, 64), torch.bfloat16, None, True, (2e-3, 2 ** -7)),
+    # short last chunks (S = 72: 8 rows; S = 136: 8 rows past two tiles),
+    # a tile of its own (S = 100) and a head shorter than a tile (S = 5)
+    ((2, 3, 72, 64), torch.bfloat16, 70, False, (2e-3, 2 ** -7)),
+    ((2, 3, 100, 64), torch.bfloat16, 30, True, (2e-3, 2 ** -7)),
+    ((4, 12, 136, 64), torch.bfloat16, 130, False, (2e-3, 2 ** -7)),
+    ((2, 3, 5, 64), torch.bfloat16, None, False, (2e-3, 2 ** -7)),
+    ((2, 3, 70, 32), torch.float32, 33, False, FP32_TOL),
+    ((2, 3, 70, 32), torch.float32, None, True, FP32_TOL),
 ])
-def test_attention_gradient_on_the_card(shape, dtype, valid_len, tol):
+def test_attention_gradient_on_the_card(shape, dtype, valid_len, strided,
+                                        tol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                  for _ in range(4))
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    if strided:
+        b, h, s, d = shape
+        g = torch.randn((b, s, h, d), generator=gen, device="cuda") \
+            .to(dtype).transpose(1, 2)
+        assert not g.is_contiguous()
+    else:
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
     before = attention.launches
+    before_bwd = attention.backward_launches
     out = attention.vit_attention(*ins, valid_len=valid_len)
     grads = torch.autograd.grad(out, ins, g)
     torch.cuda.synchronize()
     assert attention.launches == before + 1
+    # one launch of each pass: the gradient came from the kernel
+    assert attention.backward_launches == before_bwd + 2
     refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
     ref = attention.vit_attention_reference(*refs, valid_len=valid_len)
     for a, r in zip(grads, torch.autograd.grad(ref, refs, g)):
         assert a.dtype == dtype
         torch.testing.assert_close(a.float(), r.float(), atol=tol[0],
                                    rtol=tol[1])
+    if valid_len is not None:       # keys past valid_len: no gradient
+        assert not grads[1][:, :, valid_len:].any()
+        assert not grads[2][:, :, valid_len:].any()
 
 
 @pytest.mark.gpu
@@ -152,10 +186,14 @@ def test_dator_train_step_on_the_card():
     card_draws = train.StepDraws(draws.modality_p.cuda(), train.AugmentDraws(
         *(x.cuda() for x in draws.augment)))
     before = attention.launches
+    before_bwd = attention.backward_launches
     m_card = train.train_step(card, rgb.cuda(), depth.cuda(), labels.cuda(),
                               card_draws)
     torch.cuda.synchronize()
     assert attention.launches == before + cfg.backbone.num_blocks
+    # one backward call (its two passes) per tower block
+    assert attention.backward_launches == (before_bwd
+                                           + 2 * cfg.backbone.num_blocks)
     m_cpu = train.train_step(cpu, rgb, depth, labels, draws)
     for key in m_cpu:
         torch.testing.assert_close(m_card[key].cpu(), m_cpu[key], rtol=1e-4,

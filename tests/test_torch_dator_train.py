@@ -9,6 +9,12 @@ Tolerances:
   each tensor (the same fp32 maths, sums in another order; the margin
   heads scale cosines by s = 30 and CircleLoss by 256, so rounding grows
   with the largest entry); the attention Function's dq / dk / dv: 1e-5.
+  In bf16 (the kernel's precision class), the plain backward against
+  `jax.vjp` of the JAX towers' bf16 attention as written:
+  |diff| <= 1e-2 + 2^-6 |ref|. The JAX towers round the scores to bf16
+  before the softmax (2^-9 of a score of up to ~4 moves P by up to ~1 %),
+  then P, dP and dS, and both sides round each gradient to bf16 (one
+  step is 2^-8 to 2^-7 of the value); the plain backward computes in fp32.
   Ties of the hardest positive / negative are made exact with integer
   features, so both packages split the gradient over the same entries;
 * FourDNet's training outputs and BatchNorm statistics: 1e-4 (fp32
@@ -182,22 +188,40 @@ def test_margin_logits_rejects_an_unknown_head():
 # --------------------------------------------------------------------- #
 def _jax_tower_attention(q, k, v):
     """The JAX towers' attention (models/dator/transreid_vit.py:79-82) on
-    (B, H, S, D) inputs."""
+    (B, H, S, D) inputs, as written: P is rounded to the inputs' type."""
     q, k, v = (x.transpose(0, 2, 1, 3) for x in (q, k, v))   # (B, S, H, D)
     attn = jnp.einsum("bqhd,bkhd->bhqk", q, k) * (q.shape[-1] ** -0.5)
-    attn = jax.nn.softmax(attn.astype(jnp.float32), axis=-1)
+    attn = jax.nn.softmax(attn.astype(jnp.float32), axis=-1).astype(q.dtype)
     return jnp.einsum("bhqk,bkhd->bqhd", attn, v).transpose(0, 2, 1, 3)
 
 
-@pytest.mark.parametrize("valid_len", [None, 50])
-def test_attention_function_gradients(valid_len, rng):
-    shape = (2, 3, 70, 16)
+@pytest.mark.parametrize("valid_len,dtype", [
+    pytest.param(None, "float32", id="None"),
+    pytest.param(50, "float32", id="50"),
+    # the kernel's precision class: the plain backward on bf16 inputs (what
+    # the card's kernel is held to) against the JAX towers' bf16 autodiff
+    pytest.param(None, "bfloat16", id="bf16"),
+])
+def test_attention_function_gradients(valid_len, dtype, rng):
+    bf16 = dtype == "bfloat16"
+    shape = (2, 3, 70, 64 if bf16 else 16)
     q, k, v, g = (rng.normal(size=shape).astype(np.float32)
                   for _ in range(4))
-    ins = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    tdtype = getattr(torch, dtype)
+    ins = [torch.tensor(x).to(tdtype).requires_grad_(True)
+           for x in (q, k, v)]
     out = attention.vit_attention(*ins, valid_len=valid_len)
-    out.backward(torch.from_numpy(g))
-    ours = [x.grad.numpy() for x in ins]
+    out.backward(torch.from_numpy(g).to(tdtype))
+    assert all(x.grad.dtype == tdtype for x in ins)
+    ours = [x.grad.float().numpy() for x in ins]
+    if bf16:
+        _, vjp = jax.vjp(_jax_tower_attention,
+                         *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+        for o, r, n in zip(ours, vjp(jnp.asarray(g, jnp.bfloat16)), "qkv"):
+            np.testing.assert_allclose(o, np.asarray(r.astype(jnp.float32)),
+                                       atol=1e-2, rtol=2 ** -6,
+                                       err_msg=f"d{n} vs jax bf16")
+        return
 
     ref_ins = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
     attention.vit_attention_reference(*ref_ins, valid_len=valid_len) \
@@ -216,6 +240,63 @@ def test_attention_function_gradients(valid_len, rng):
     if valid_len is not None:       # keys past valid_len: no gradient
         assert not ours[1][:, :, valid_len:].any()
         assert not ours[2][:, :, valid_len:].any()
+
+
+def _backward_inputs(dtype=torch.bfloat16, d=64):
+    q, k, v, g = (torch.zeros((1, 2, 16, d), dtype=dtype) for _ in range(4))
+    return q, k, v, g
+
+
+@pytest.mark.parametrize("case,match", [
+    ("bf16_head_size_32", "head size 64"),
+    ("grad_shape", "grad_out must have q's shape"),
+    ("grad_dtype", "grad_out must have q's dtype"),
+    ("grad_device", "grad_out must lie on q's device"),
+    ("k_device", "one device"),
+    ("valid_len_zero", "valid_len must lie in"),
+    ("valid_len_past_s", "valid_len must lie in"),
+    ("fp16", "bf16 or fp32"),
+    ("batch_heads", "65535"),
+    ("cpu", "no attention backward kernel for device cpu"),
+])
+def test_backward_check_rejects_what_the_kernel_does_not_take(case, match):
+    """`_backward_check` raises before any launch; on CPU tensors it stops
+    at the device (the wrapper gives them the plain version)."""
+    q, k, v, g = _backward_inputs()
+    valid = None
+    if case == "bf16_head_size_32":
+        q, k, v, g = _backward_inputs(d=32)
+    elif case == "grad_shape":
+        g = g[:, :, :8]
+    elif case == "grad_dtype":
+        g = g.float()
+    elif case == "grad_device":
+        g = torch.zeros(g.shape, dtype=g.dtype, device="meta")
+    elif case == "k_device":
+        k = torch.zeros(k.shape, dtype=k.dtype, device="meta")
+    elif case == "valid_len_zero":
+        valid = 0
+    elif case == "valid_len_past_s":
+        valid = 17
+    elif case == "fp16":
+        q, k, v, g = _backward_inputs(torch.float16)
+    elif case == "batch_heads":
+        q, k, v, g = (torch.zeros((1, 1, 16, 64), dtype=torch.bfloat16)
+                      .expand(65536, 1, 16, 64) for _ in range(4))
+    with pytest.raises(ValueError, match=match):
+        attention._backward_check(q, k, v, g, valid)
+
+
+def test_backward_wrapper_takes_plain_version_on_cpu(rng):
+    shape = (1, 2, 20, 8)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                  for _ in range(4))
+    before = attention.backward_launches
+    got = attention._attention_backward(q, k, v, g.transpose(2, 3)
+                                        .contiguous().transpose(2, 3), 11)
+    assert attention.backward_launches == before
+    for a, r in zip(got, attention.vit_attention_backward(q, k, v, g, 11)):
+        torch.testing.assert_close(a, r, atol=0, rtol=0)
 
 
 # --------------------------------------------------------------------- #
