@@ -125,24 +125,31 @@ progress line and raise on failure:
                   version with phase 2's tolerance, timed beside SDPA.
  13. dator_train  DATOR training on the card:
               (a) the ViT attention's autograd Function through the
-                  backward kernel (csrc/vit_attention_backward.cu, one
-                  launch of each of its two passes) at the training shape
-                  (128, 12, 129, 64) bf16 (2 towers x 64 crops), at
-                  (4, 12, 129, 64) with valid_len 100 in bf16 and fp32,
-                  and at the embedders' (16, 12, 257 / 50, 64): the
-                  forward (the kernel) within phase 2's tolerance, dq, dk,
-                  dv from a random upstream gradient within 2e-3 + 2^-7
-                  |ref| (bf16) or 1e-5 (fp32) of the plain backward and of
-                  autograd of the plain version, zero dk and dv past
-                  valid_len; each backward pass, the plain backward, the
-                  kernel forward + backward and SDPA's forward, backward
-                  and forward + backward timed on the device (SDPA a
-                  yardstick only; the port never calls it), beside the
-                  backward's bound;
+                  backward kernel attention.backward_kernel picks
+                  (csrc/vit_attention_backward.cu: one launch of the fused
+                  kernel for bf16 heads of S <= 144, else one of each of
+                  the two passes) at the training shape (128, 12, 129, 64)
+                  bf16 (2 towers x 64 crops), at (4, 12, 129, 64) with
+                  valid_len 100 in bf16 and fp32, at the embedders' (16,
+                  12, 257 / 50, 64), at the fused kernel's edges (S = 128,
+                  144 with valid_len 130, 145) and with 1 and 21 heads (a
+                  partial wave of its persistent blocks): the forward (the
+                  kernel) within phase 2's tolerance, dq, dk, dv from a
+                  random upstream gradient within 2e-3 + 2^-7 |ref| (bf16)
+                  or 1e-5 (fp32) of the plain backward and of autograd of
+                  the plain version, zero dk and dv past valid_len; two
+                  fused runs bitwise equal; the fused kernel, the two
+                  passes (at the training shape, at 257 and in fp32 at
+                  the (b) step's shape), the plain backward, the kernel
+                  forward + backward and SDPA's forward, backward and
+                  forward + backward timed on the device (SDPA a yardstick
+                  only; the port never calls it), beside the backward's
+                  bound;
               (b) one training step at full width, 2 blocks per tower,
                   batch 16, with modality dropout and augmentation, fp32
-                  on the card (the forward's and the backward's fp32
-                  kernels, one launch of each a block) against fp32 on the
+                  on the card (the forward's fp32 kernel and the
+                  backward's two fp32 passes, one launch of each a block)
+                  against fp32 on the
                   CPU from the same weights and draws: every loss term
                   within 1e-3 relative, each trainable tensor's update
                   within 1e-4 of its size, BatchNorm statistics within
@@ -154,16 +161,16 @@ progress line and raise on failure:
                   dataset, seeded random init) for 3 epochs with an eval
                   every epoch (val split): finite losses, finite rank-1
                   and mAP for every ablation, 11 kernel launches per
-                  training step and per eval batch and 22 backward passes
-                  per training step; then --resume 3 for a
+                  training step and per eval batch and 11 fused backward
+                  launches per training step; then --resume 3 for a
                   fourth epoch, and params_latest.npz through
                   build_dator_embedder on the bench scene's crops;
               (d) 20 steps on one fixed batch of 64 at full width: the
                   mean loss of the last 5 below that of the first 5, 11
-                  launches and 22 backward passes per step; ms per step
-                  (CUDA events) and
-                  samples/s, one step's device busy ms, idle share and
-                  largest kernels (torch.profiler), and the step's time
+                  launches and 11 fused backward launches per step; ms per
+                  step (CUDA events) and samples/s, one step's wall and
+                  device busy ms, idle share, launches and largest kernels
+                  (torch.profiler), and the step's time
                   without the frozen weights' gradients (a probe of what
                   the clip's norm costs).
  14. rest     the library APIs and options of the last slice, each on the
@@ -197,8 +204,10 @@ progress line and raise on failure:
                   launches at each tap count.
 
 The last lines are the card's name and power limit, a JSON line describing
-each kernel (the backward's entry also gives each pass's time and its
-ptxas registers and spills), and {"ok": true, "device": {...}}. Without a CUDA device, or
+each kernel (the backward has two entries, the fused kernel and the two
+passes, each with its ptxas registers and spills; the two passes' entry
+counts the fp32 launches of phase 13 (b) and gives each pass's time), and
+{"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits non-zero before printing any result.
 
 Run from the repository root: python3 chip_smoke.py
@@ -351,9 +360,9 @@ def phase_build():
         print(info["log"], flush=True)
     log(f"build done in {time.perf_counter() - t0:.1f} s; dynamic shared "
         f"memory per block: vit_attention at (S = 257, bf16) "
-        f"{attention._smem_bytes(64, 257, 2)} B, its backward at S = 129 / "
-        f"257 {attention._backward_smem_bytes(64, 129, 129, 2)} / "
-        f"{attention._backward_smem_bytes(64, 257, 257, 2)} B, "
+        f"{attention._smem_bytes(64, 257, 2)} B, its backward at S = 129 "
+        f"(fused) {attention._fused_backward_smem_bytes(129)} B, at S = 257 "
+        f"(two passes) {attention._backward_smem_bytes(64, 257, 257, 2)} B, "
         f"sam_attention at SAM-H {sam_attention._smem_bytes(80, 64, 64)} B, "
         f"at a 48x48 grid {sam_attention._smem_bytes(80, 48, 48)} B")
     return ptxas
@@ -1923,8 +1932,9 @@ def device_breakdown(fn, top: int = 8):
 
 
 def attention_gradient_case(gen, shape, dtype, valid):
-    """The Function's gradient through the backward kernel (one launch of
-    each pass) against the plain backward and autograd of the plain
+    """The Function's gradient through the backward kernel that
+    `attention.backward_kernel` picks (one launch of the fused kernel, or
+    one of each pass) against the plain backward and autograd of the plain
     forward; keys past valid_len must get exactly zero dk and dv. Returns
     the largest |diff| to the plain backward."""
     import torch
@@ -1933,6 +1943,7 @@ def attention_gradient_case(gen, shape, dtype, valid):
                   for _ in range(4))
     ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
     before = attention.backward_launches
+    before_fused = attention.fused_backward_launches
     out = attention.vit_attention(*ins, valid)
     grads = torch.autograd.grad(out, ins, g)
     torch.cuda.synchronize()
@@ -1946,9 +1957,14 @@ def attention_gradient_case(gen, shape, dtype, valid):
           .max().item() <= 0,
           f"dator_train: kernel forward disagrees at {shape}: "
           f"{diff.max().item()}")
-    check(attention.backward_launches == before + 2,
-          f"dator_train: the backward at {shape} launched "
-          f"{attention.backward_launches - before} passes, not 2")
+    kernel = attention.backward_kernel(shape[2], shape[3], dtype)
+    fused = int(kernel == "fused")
+    check(attention.backward_launches - before == 2 - fused
+          and attention.fused_backward_launches - before_fused == fused,
+          f"dator_train: the backward at {shape} {dtype} launched "
+          f"{attention.backward_launches - before} kernels "
+          f"({attention.fused_backward_launches - before_fused} fused), "
+          f"not the {kernel} kernel's {2 - fused}")
     refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
     autograd_ref = torch.autograd.grad(
         attention.vit_attention_reference(*refs, valid), refs, g)
@@ -1965,7 +1981,7 @@ def attention_gradient_case(gen, shape, dtype, valid):
             if what == "plain backward":
                 worst = max(worst, err)
         log(f"dator_train: d{name} at {shape} {str(dtype)[6:]} valid_len="
-            f"{valid}: max|diff| {err:.3g} to autograd, "
+            f"{valid} ({kernel}): max|diff| {err:.3g} to autograd, "
             f"{(a.float() - r1.float()).abs().max().item():.3g} to the plain "
             f"backward, max|ref| {r1.float().abs().max().item():.3g} "
             f"(tolerance {atol} + {rtol:.3g} |ref|)")
@@ -1976,20 +1992,24 @@ def attention_gradient_case(gen, shape, dtype, valid):
     return worst
 
 
-def backward_times(q, k, v, g):
-    """Device times of the backward kernel's two passes, the plain
-    backward, SDPA's forward and its backward alone (a yardstick; the port
-    never calls it), and the backward's bound, at q's shape (bf16)."""
+def backward_times(q, k, v, g, kernel):
+    """Device times of the backward `kernel` ("fused": its one kernel;
+    "two_pass": its two passes), the plain backward, SDPA's forward and its
+    backward alone (a yardstick; the port never calls it), and the
+    backward's bound, at q's shape and type."""
     import torch
     import torch.nn.functional as F
     from instance_based_loc_tpu_torch.ops import attention
     b, h, s, d = q.shape
 
-    def kernel():
-        attention._attention_backward(q, k, v, g, None)
+    def run():
+        attention._attention_backward(q, k, v, g, None, kernel=kernel)
 
-    dq_ms = device_ms(kernel, "vit_attention_bwd_dq")
-    dkdv_ms = device_ms(kernel, "vit_attention_bwd_dkdv")
+    if kernel == "fused":
+        passes = {"fused": device_ms(run, "vit_attention_bwd_fused")}
+    else:
+        passes = {"dq": device_ms(run, "vit_attention_bwd_dq"),
+                  "dkdv": device_ms(run, "vit_attention_bwd_dkdv")}
     plain_ms = device_ms(lambda: attention.vit_attention_backward(q, k, v, g))
     sdpa_fwd_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
     sq, sk, sv = (x.clone().requires_grad_(True) for x in (q, k, v))
@@ -1997,12 +2017,23 @@ def backward_times(q, k, v, g):
     library_ms = device_ms(lambda: torch.autograd.grad(
         out, (sq, sk, sv), g, retain_graph=True))
     # reads q, k, v, g, writes dq, dk, dv; five products of 2 S^2 D each
+    rate = (H100_BF16_FLOP_PER_S if q.dtype == torch.bfloat16
+            else H100_FP32_FLOP_PER_S)
     bound_ms, bound_by = bound(7 * b * h * s * d * q.element_size(),
-                               10 * b * h * s * s * d, H100_BF16_FLOP_PER_S)
-    return {"ms": dq_ms + dkdv_ms, "dq_ms": dq_ms, "dkdv_ms": dkdv_ms,
+                               10 * b * h * s * s * d, rate)
+    return {"ms": sum(passes.values()), "passes_ms": passes,
             "plain_ms": plain_ms, "sdpa_fwd_ms": sdpa_fwd_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
+
+
+def times_text(t):
+    """One backward_times result as text."""
+    passes = " + ".join(f"{n} {ms:.4f}" for n, ms in t["passes_ms"].items())
+    return (f"{t['ms']:.4f} ms ({passes}; bound {t['bound_ms'] * 1e3:.2f} us "
+            f"by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, sdpa "
+            f"backward {t['library_ms']:.4f} ms, sdpa forward "
+            f"{t['sdpa_fwd_ms']:.4f} ms device")
 
 
 def dator_cli(argv):
@@ -2033,23 +2064,40 @@ def phase_dator_train(workdir, scene_data, card):
     from instance_based_loc_tpu_torch.ops import attention
     t0 = time.perf_counter()
 
-    # (a) the attention Function at the training shape (2 towers x 64), a
-    # masked tail, an fp32 case and the embedders' shapes: the backward
-    # kernel's dq, dk, dv against the plain backward and against autograd
-    # of the plain forward, then device times
+    # (a) the attention Function: the fused backward at the training shape
+    # (2 towers x 64), with a masked tail, at CLIP-B/32's S = 50, at its
+    # edges (S = 128, S_max) and with 1 and 21 heads (a partial wave of the
+    # persistent blocks); the two passes past S_max (S_max + 1, DINOv2's
+    # 257) and in fp32: dq, dk, dv against the plain backward and against
+    # autograd of the plain forward; two runs of the fused kernel bitwise
+    # equal; then device times
     gen = torch.Generator(device="cuda").manual_seed(13)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    smax = attention.FUSED_MAX_S
     errs = {}
-    for shape, dtype, valid in [((128, 12, 129, 64), torch.bfloat16, None),
-                                ((4, 12, 129, 64), torch.bfloat16, 100),
-                                ((4, 12, 129, 64), torch.float32, 100),
-                                ((16, 12, 257, 64), torch.bfloat16, None),
-                                ((16, 12, 50, 64), torch.bfloat16, None)]:
+    for shape, dtype, valid in [((128, 12, 129, 64), bf16, None),
+                                ((4, 12, 129, 64), bf16, 100),
+                                ((4, 12, 129, 64), fp32, 100),
+                                ((16, 12, 50, 64), bf16, None),
+                                ((1, 1, 129, 64), bf16, None),
+                                ((3, 7, 129, 64), bf16, None),
+                                ((4, 12, 128, 64), bf16, None),
+                                ((4, 12, smax, 64), bf16, 130),
+                                ((4, 12, smax + 1, 64), bf16, None),
+                                ((16, 12, 257, 64), bf16, None)]:
         errs[shape, dtype] = attention_gradient_case(gen, shape, dtype, valid)
     shape = (128, 12, 129, 64)
     b, h, s, d = shape
-    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda")
-                  .to(torch.bfloat16) for _ in range(4))
-    bwd = backward_times(q, k, v, g)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(bf16)
+                  for _ in range(4))
+    first = attention._attention_backward(q, k, v, g, None)
+    again = attention._attention_backward(q, k, v, g, None)
+    check(all(torch.equal(x, y) for x, y in zip(first, again)),
+          "dator_train: two runs of the fused backward differ")
+    log(f"dator_train: two runs of the fused backward at {shape} give "
+        f"bitwise-equal dq, dk and dv")
+    bwd = backward_times(q, k, v, g, "fused")
+    two = backward_times(q, k, v, g, "two_pass")
     kernel_ms = device_ms(lambda: attention.vit_attention(q, k, v),
                           "vit_attention_wgmma")
     plain_ms = time_ms(lambda: attention.vit_attention_reference(q, k, v))
@@ -2064,34 +2112,39 @@ def phase_dator_train(workdir, scene_data, card):
                                        H100_BF16_FLOP_PER_S)
     log(f"dator_train: at {shape} bf16 ({card}): kernel forward "
         f"{kernel_ms:.4f} ms device (bound {fwd_bound_ms * 1e3:.2f} us by "
-        f"{fwd_bound_by}), plain forward {plain_ms:.4f} ms; backward kernel "
-        f"{bwd['ms']:.4f} ms (dq pass {bwd['dq_ms']:.4f} + dk/dv pass "
-        f"{bwd['dkdv_ms']:.4f}; bound {bwd['bound_ms'] * 1e3:.2f} us by "
-        f"{bwd['bound_by']}), plain backward (fp32 torch) "
-        f"{bwd['plain_ms']:.4f} ms; kernel forward + backward "
-        f"{kernel_fb_ms:.4f} ms; sdpa forward {bwd['sdpa_fwd_ms']:.4f} ms, "
-        f"backward {bwd['library_ms']:.4f} ms, forward + backward "
+        f"{fwd_bound_by}), plain forward {plain_ms:.4f} ms; fused backward "
+        f"{times_text(bwd)}; the two passes at this shape "
+        f"{two['ms']:.4f} ms ({two['passes_ms']}); kernel forward + fused "
+        f"backward {kernel_fb_ms:.4f} ms, sdpa forward + backward "
         f"{sdpa_fb_ms:.4f} ms device")
-    for eshape in [(16, 12, 257, 64), (16, 12, 50, 64)]:
+    for eshape, kernel in [((16, 12, 257, 64), "two_pass"),
+                           ((16, 12, 50, 64), "fused")]:
         e = backward_times(*(torch.randn(eshape, generator=gen, device="cuda")
-                             .to(torch.bfloat16) for _ in range(4)))
-        log(f"dator_train: backward at {eshape} bf16 ({card}): kernel "
-            f"{e['ms']:.4f} ms (dq {e['dq_ms']:.4f} + dk/dv "
-            f"{e['dkdv_ms']:.4f}; bound {e['bound_ms'] * 1e3:.2f} us by "
-            f"{e['bound_by']}), plain {e['plain_ms']:.4f} ms, sdpa backward "
-            f"{e['library_ms']:.4f} ms, sdpa forward {e['sdpa_fwd_ms']:.4f} "
-            f"ms device")
-    backward = {"name": "vit_attention_backward", "route": "cuda",
-                "source": "instance_based_loc_tpu_torch/csrc/"
-                          "vit_attention_backward.cu",
-                "replaces": "instance_based_loc_tpu/models/dator/"
-                            "transreid_vit.py:79",
-                "launches": None,
-                "max_abs_err": errs[shape, torch.bfloat16],
-                "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
-                "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
-                "library_ms": bwd["library_ms"],
-                "passes_ms": {"dq": bwd["dq_ms"], "dkdv": bwd["dkdv_ms"]}}
+                             .to(bf16) for _ in range(4)), kernel)
+        log(f"dator_train: backward at {eshape} bf16 ({card}), {kernel}: "
+            f"{times_text(e)}")
+    # the two passes as phase (b)'s fp32 step launches them (2 towers x 16)
+    fshape = (32, 12, 129, 64)
+    f32 = backward_times(*(torch.randn(fshape, generator=gen, device="cuda")
+                           for _ in range(4)), "two_pass")
+    log(f"dator_train: backward at {fshape} fp32 ({card}), two passes: "
+        f"{times_text(f32)}")
+    source = "instance_based_loc_tpu_torch/csrc/vit_attention_backward.cu"
+    replaces = "instance_based_loc_tpu/models/dator/transreid_vit.py:79"
+    fused_entry = {"name": "vit_attention_backward_fused", "route": "cuda",
+                   "source": source, "replaces": replaces, "launches": None,
+                   "max_abs_err": errs[shape, bf16], "ms": bwd["ms"],
+                   "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+                   "bound_by": bwd["bound_by"],
+                   "library_ms": bwd["library_ms"], "shape": list(shape),
+                   "dtype": "bfloat16", "two_pass_ms": two["passes_ms"]}
+    two_entry = {"name": "vit_attention_backward", "route": "cuda",
+                 "source": source, "replaces": replaces, "launches": None,
+                 "max_abs_err": errs[(4, 12, 129, 64), fp32],
+                 "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+                 "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+                 "library_ms": f32["library_ms"], "shape": list(fshape),
+                 "dtype": "float32", "passes_ms": f32["passes_ms"]}
 
     # (b) one step at full width, 2 blocks per tower, batch 16, fp32: the
     # card (the kernels' fp32 paths) against the CPU (plain attention)
@@ -2115,6 +2168,7 @@ def phase_dator_train(workdir, scene_data, card):
     draws = train.make_step_draws(torch.Generator().manual_seed(13), 16,
                                   True, True)
     attention.launches = attention.backward_launches = 0
+    attention.fused_backward_launches = 0
     m_dev = train.train_step(dev, rgb.cuda(), depth.cuda(), labels.cuda(),
                              train.StepDraws(draws.modality_p.cuda(),
                                              train.AugmentDraws(*(
@@ -2123,11 +2177,14 @@ def phase_dator_train(workdir, scene_data, card):
     torch.cuda.synchronize()
     step_launches = attention.launches
     step_bwd = attention.backward_launches
+    step_fused = attention.fused_backward_launches
     m_cpu = train.train_step(cpu, rgb, depth, labels, draws)
+    # fp32: the two passes, one launch of each per tower block
     check(step_launches == mcfg.backbone.num_blocks
-          and step_bwd == 2 * mcfg.backbone.num_blocks,
+          and step_bwd == 2 * mcfg.backbone.num_blocks and step_fused == 0,
           f"dator_train: {step_launches} kernel launches and {step_bwd} "
-          f"backward passes in a 2-block step")
+          f"backward launches ({step_fused} fused) in a 2-block fp32 step")
+    two_entry["launches"] = step_bwd
     for key_ in m_cpu:
         a, r = float(m_dev[key_]), float(m_cpu[key_])
         log(f"dator_train: step {key_}: card {a:.6f}, cpu {r:.6f}")
@@ -2175,11 +2232,13 @@ def phase_dator_train(workdir, scene_data, card):
     n_val = len(scan_instance_dirs(f"{reid}/val"))
     evals_per_epoch = 3 * -(-n_val // 64)
     attention.launches = attention.backward_launches = 0
+    attention.fused_backward_launches = 0
     t1 = time.perf_counter()
     state, text = dator_cli(opts + ["train.epochs=3"])
     torch.cuda.synchronize()
     cli_launches = attention.launches
     cli_bwd = attention.backward_launches
+    cli_fused = attention.fused_backward_launches
     cli_s = time.perf_counter() - t1
     bb = state.model.cfg.backbone
     check((bb.hidden_size, bb.num_blocks, bb.img_height, bb.img_width,
@@ -2204,21 +2263,25 @@ def phase_dator_train(workdir, scene_data, card):
     check(cli_launches == expected,
           f"dator_train cli: {cli_launches} kernel launches, expected "
           f"{expected} (11 per training step and per eval batch)")
-    check(cli_bwd == 2 * bb.num_blocks * state.step,
-          f"dator_train cli: {cli_bwd} backward passes, expected "
-          f"{2 * bb.num_blocks * state.step} (11 of each pass a step)")
+    check(cli_bwd == bb.num_blocks * state.step and cli_fused == cli_bwd,
+          f"dator_train cli: {cli_bwd} backward launches ({cli_fused} "
+          f"fused), expected {bb.num_blocks * state.step} of the fused "
+          f"kernel (11 a step)")
     attention.launches = attention.backward_launches = 0
+    attention.fused_backward_launches = 0
     resumed, text = dator_cli(opts + ["train.epochs=4", "--resume", "3"])
     torch.cuda.synchronize()
     resume_launches = attention.launches
     resume_bwd = attention.backward_launches
+    resume_fused = attention.fused_backward_launches
     check("resumed from" in text and resumed.step == 4 * spe,
           f"dator_train cli: --resume 3 ended at step {resumed.step}, "
           f"expected {4 * spe}")
     check(resume_launches == bb.num_blocks * (spe + evals_per_epoch)
-          and resume_bwd == 2 * bb.num_blocks * spe,
+          and resume_bwd == bb.num_blocks * spe
+          and resume_fused == resume_bwd,
           f"dator_train cli: {resume_launches} launches and {resume_bwd} "
-          f"backward passes in the resumed epoch")
+          f"backward launches ({resume_fused} fused) in the resumed epoch")
     embed = get_embedder("dator", device="cuda",
                          checkpoint_path=f"{out_dir}/params_latest.npz")
     _, _, frames, _ = scene_data
@@ -2249,6 +2312,7 @@ def phase_dator_train(workdir, scene_data, card):
     gen = torch.Generator(device="cuda").manual_seed(1)
     step_losses = []
     attention.launches = attention.backward_launches = 0
+    attention.fused_backward_launches = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     for i in range(20):
@@ -2261,6 +2325,7 @@ def phase_dator_train(workdir, scene_data, card):
     torch.cuda.synchronize()
     learn_launches = attention.launches
     learn_bwd = attention.backward_launches
+    learn_fused = attention.fused_backward_launches
     step_ms = start.elapsed_time(end) / 15
     step_losses = [float(x) for x in step_losses]
     first, last = np.mean(step_losses[:5]), np.mean(step_losses[-5:])
@@ -2268,13 +2333,15 @@ def phase_dator_train(workdir, scene_data, card):
         f"{np.round(step_losses, 4).tolist()}; first 5 mean {first:.4f}, "
         f"last 5 mean {last:.4f}; {step_ms:.2f} ms per step (CUDA events, "
         f"steps 5-19), {64e3 / step_ms:.1f} samples/s; vit_attention "
-        f"launches {learn_launches}, backward passes {learn_bwd}")
+        f"launches {learn_launches}, backward launches {learn_bwd} "
+        f"({learn_fused} fused)")
     check(bool(np.isfinite(step_losses).all()) and last < first,
           f"dator_train: the loss did not fall: {step_losses}")
     check(learn_launches == 20 * mcfg.backbone.num_blocks
-          and learn_bwd == 40 * mcfg.backbone.num_blocks,
+          and learn_bwd == 20 * mcfg.backbone.num_blocks
+          and learn_fused == learn_bwd,
           f"dator_train: {learn_launches} launches and {learn_bwd} backward "
-          f"passes in 20 steps")
+          f"launches ({learn_fused} fused) in 20 steps")
     def one_step():
         train.train_step(state, rgb, depth, pids,
                          train.make_step_draws(gen, 64, True, False))
@@ -2283,7 +2350,9 @@ def phase_dator_train(workdir, scene_data, card):
     log(f"dator_train: one step under the profiler ({card}): wall "
         f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f}, {host_calls} launch calls, "
-        f"{kernels} device kernels and copies")
+        f"{kernels} device kernels and copies, "
+        f"{learn_bwd // 20} backward kernel launches a step; "
+        f"{step_ms:.2f} ms a step unprofiled (CUDA events)")
     log("dator_train: the step's device time by kernel, largest first: "
         + "; ".join(f"{name[:60]} x{n} {ms:.2f} ms"
                     for name, n, ms in device_breakdown(one_step)))
@@ -2299,8 +2368,9 @@ def phase_dator_train(workdir, scene_data, card):
     log(f"dator_train: without the frozen weights' gradients a step takes "
         f"{probe_ms:.2f} ms ({step_ms - probe_ms:.2f} ms less; {card})")
     log(f"dator_train phase done in {time.perf_counter() - t0:.1f} s")
-    backward["launches"] = cli_bwd + resume_bwd + learn_bwd
-    return cli_launches + resume_launches + learn_launches, backward
+    fused_entry["launches"] = cli_fused + resume_fused + learn_fused
+    return (cli_launches + resume_launches + learn_launches,
+            [fused_entry, two_entry])
 
 
 # phase 14 gates (set before the first run on the card)
@@ -2747,7 +2817,7 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     # the package must sit beside this script
-    import instance_based_loc_tpu_torch  # noqa: F401
+    from instance_based_loc_tpu_torch.ops import attention
 
     card = gpu_name_and_power_limit()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -2777,14 +2847,16 @@ def main() -> int:
         kernel["launches"] += phase_clip_loc(workdir)
         train_launches, backward = phase_dator_train(workdir, scene_data,
                                                      card)
+        backward[0]["ptxas"] = [line for line in ptxas[attention.BACKWARD_SOURCE]
+                                if "fused" in line]
+        backward[1]["ptxas"] = [line for line in ptxas[attention.BACKWARD_SOURCE]
+                                if "fused" not in line]
         kernel["launches"] += train_launches
         shapes = phase_rest(workdir, cascade)
     log(f"all phases passed in {time.perf_counter() - T_START:.1f} s")
 
     print(card, flush=True)
-    from instance_based_loc_tpu_torch.ops import attention
-    backward["ptxas"] = ptxas[attention.BACKWARD_SOURCE]
-    print(json.dumps({"kernels": [kernel, sam, msda, backward] + shapes}),
+    print(json.dumps({"kernels": [kernel, sam, msda, *backward] + shapes}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -161,6 +161,25 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
+// A 32-bit store to shared memory at a 32-bit shared address.
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
+}
+
+// A 32-bit load from shared memory at a 32-bit shared address.
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// Makes this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma operands read from shared memory); a barrier then orders
+// them before another thread's wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kRegs));
@@ -189,8 +208,9 @@ __device__ __forceinline__ uint64_t desc_k_sw32(uint32_t tile) {
   return make_desc(tile, 1, 16, 3);
 }
 
-// MN-major B operand (k rows of N contiguous columns): the 16 keys of
-// k-step kk start at row 16 kk; 8-key groups 1024 B or 256 B apart.
+// MN-major operand (k rows of 64 or 16 contiguous M or N values), A or B
+// alike: the 16 k values of k-step kk start at row 16 kk; 8-row groups
+// 1024 B or 256 B apart.
 __device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t tile, int kk) {
   return make_desc(tile + kk * 16 * 128, 1, 64, 1);
 }
@@ -225,6 +245,15 @@ __device__ __forceinline__ float exp2_fast(float x) {
   return y;
 }
 
+// 1 / x on the special-function unit (relative error ~2^-23). Unlike
+// 1.f / x it has no slow path, whose subroutine call makes the caller save
+// every live register to local memory; for x in the normal range.
+__device__ __forceinline__ float rcp_fast(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -238,6 +267,14 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   hi = __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
   lo = pack_bf16(a - __uint_as_float(__float_as_uint(a) & 0xffff0000u),
                  b - __uint_as_float(__float_as_uint(b) & 0xffff0000u));
+}
+
+// The inverse of split_bf16: the two values a high-part word and a
+// remainder word hold, each the sum of its two bf16 parts.
+__device__ __forceinline__ void unsplit_bf16(uint32_t hi, uint32_t lo,
+                                             float& a, float& b) {
+  a = __uint_as_float(hi << 16) + __uint_as_float(lo << 16);
+  b = __uint_as_float(hi & 0xffff0000u) + __uint_as_float(lo & 0xffff0000u);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -343,6 +380,70 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
     wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
   else
     wgmma_m64n16k16_ss(d, desc_a, desc_b, scale_d);
+}
+
+// d (64 x 64, fp32) += a (64 x 16) * b (16 x 64), both bf16 in shared memory
+// and MN-major: a's 64 rows contiguous for each of its 16 columns (a
+// transposed operand, e.g. P^T read from P stored row by row), b's 64
+// columns contiguous for each of its 16 rows.
+__device__ __forceinline__ void wgmma_m64n64k16_ss_mn(float (&d)[32],
+                                                      uint64_t desc_a,
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 64, fp32) += a (64 x 16, K-major) * b (16 x 64, MN-major: its 64
+// columns contiguous), both bf16 in shared memory.
+__device__ __forceinline__ void wgmma_m64n64k16_ss_kmn(float (&d)[32],
+                                                       uint64_t desc_a,
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 16, fp32) += a (64 x 16) * b (16 x 16), both bf16 in shared memory
+// and MN-major (b under the 32-byte swizzle: its 16 columns are 32 B).
+__device__ __forceinline__ void wgmma_m64n16k16_ss_mn(float (&d)[8],
+                                                      uint64_t desc_a,
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 // d (64 x 64, fp32) += a (64 x 16, bf16 fragments in registers) * b (16 x 64,

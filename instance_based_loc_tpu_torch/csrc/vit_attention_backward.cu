@@ -18,14 +18,46 @@
 // Bound at the training shape (B*H = 128 * 12 heads, S = 129, D = 64, bf16)
 // on an H100 SXM: reading q, k, v, g and writing dq, dk, dv is 7 * 25.36 MB
 // = 177.5 MB, 53.0 us at 3.35 TB/s; the five products are 5 * 2 S^2 D B H =
-// 16.4 GFLOP, 16.5 us at 989 TFLOP/s bf16. So it is bound by bytes. The two
-// passes below read q, k, v and g twice (~83 us at best); in exchange they
-// need no atomics, so the gradient is deterministic, and no saved forward
-// output.
+// 16.4 GFLOP, 16.5 us at 989 TFLOP/s bf16. So it is bound by bytes. No
+// design here uses atomics: every gradient is deterministic.
 //
-// * bf16, D = 64, tensor cores: two kernels in the FlashAttention-2 order,
-//   each one block per (batch, head) with two consumer warpgroups and a
-//   producer warpgroup, in the manner of the forward (vit_attention.cu):
+// * bf16, D = 64, S <= S_max = 144 (the towers' 129, CLIP-B/32's 50):
+//   vit_attention_bwd_fused_wgmma, one pass over each head in a persistent
+//   kernel (ops/attention.py:backward_kernel picks it). One block per SM
+//   walks the heads; one thread issues TMA loads of a head's g, K, q and V
+//   (one box each, padded to kPad = 16, 64, 80, 128 or 144 rows and keys,
+//   zero past S) into a ring of 7 slots, so the next head's four operands
+//   are in flight while this head computes; each operand is read from
+//   device memory once, and no scratch goes to device memory. Three
+//   warpgroups (no producer warpgroup: at S = 129 the 129th row needs a
+//   third 64-row tile, and at 384 threads the 168-register cap leaves none
+//   to give away) each take a 64-row tile of the head (the third, at S =
+//   129, for one real row) and one key job (a 64-key tile of dk and dv, or
+//   the 16 tail keys). Per head (shared-memory map and barriers at the
+//   kernel):
+//   - S = q K^T for the tile's rows over all kPad keys as one wgmma chain
+//     (64 x 144 fp32 in registers), the softmax exact and whole (no online
+//     rescaling, no log-sum-exp), P staged to shared memory as a bf16 high
+//     part and the bf16-rounded remainder (~16 bits, which the 2e-3 +
+//     2^-7 |ref| tolerance needs, below), D = rowsum(P dP) with dP = g V^T
+//     one 64-key chunk at a time;
+//   - dv = P^T g per key job, P^T read MN-major from the staging (the 16
+//     tail keys as dv^T = g^T P, m64n16, the staged tail under the 32-byte
+//     swizzle);
+//   - each row tile recomputes dP chunk by chunk and overwrites its staged
+//     P with dS (hi + lo), then dq = dS K and dk = dS^T q both read dS from
+//     shared memory.
+//   S and dP never sit in registers together (144 fp32), no dS waits in
+//   registers between products and no product takes its A operand from
+//   registers: with any of these ptxas ran out of registers for the wgmma
+//   pipeline and serialised every wgmma of the kernel (PERF.md).
+//   The cost is dP computed twice. On the card it takes 0.147 ms at the
+//   training shape (PERF.md): ~21K cycles a head, most of it latency of the
+//   phases each head runs one after another.
+// * bf16, D = 64, longer heads (DINOv2's 257): two kernels in the
+//   FlashAttention-2 order, each one block per (batch, head) with two
+//   consumer warpgroups and a producer warpgroup, in the manner of the
+//   forward (vit_attention.cu):
 //   (a) vit_attention_bwd_dq_wgmma, split by 64-row query tile. The
 //       producer loads the head's K and V by TMA, each 64-key chunk on
 //       its own mbarrier; each consumer warpgroup loads its Q and g tiles.
@@ -57,7 +89,8 @@
 //   producer warp, sharing its scheduler with two consumer warps, made this
 //   row the block's critical path).
 //   Operand rows are 128 B under the 128-byte swizzle; TMA zero-fills rows
-//   past S.
+//   past S. Reading q, k, v and g twice, the design's floor is ~83 us at
+//   the training shape; it took 0.2297-0.2315 ms there (PERF.md).
 // * fp32, any D, CUDA cores: the same two passes as simple kernels, one
 //   block per 64 rows (a) or keys (b) of a head, each warp one row or key
 //   at a time, lanes split the keys (a) or queries (b) for the scores and
@@ -1020,6 +1053,552 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
+// ------------------------------------ bf16, D = 64, fused and persistent
+
+constexpr int kFusedMaxS = 144;           // two 64-key chunks and 16 keys
+constexpr int kFusedGroups = 3;           // warpgroups, all of them compute
+constexpr int kFusedThreads = kFusedGroups * 128;
+constexpr int kRing = 7;                  // operand slots
+constexpr int kTmaThread = 2 * 128;       // issues the loads (warpgroup 2)
+
+// A head of S <= kFusedMaxS rows, padded to kPad = NF + NS rows and keys:
+// NF keys in 64-key chunks (0, 64 or 128) and NS = 16 tail keys or none.
+__host__ __device__ constexpr int fused_pad(int s) {
+  return s <= 16 ? 16 : s <= 64 ? 64 : s <= 80 ? 80 : s <= 128 ? 128 : 144;
+}
+
+template <int NF, int NS>
+struct Fused {
+  static constexpr int kPad = NF + NS;
+  static constexpr int kSteps = kPad / 16;       // k-steps over kPad
+  static constexpr int kBoxBytes = kPad * 128;   // one operand of a head
+  // A slot holds at least one 64-row tile, which a row tile reads whole;
+  // the rows past the box (and, from the last slot, the 48 rows a third
+  // row tile reads past S_max) hold other data, and only give rows past S,
+  // which are discarded.
+  static constexpr int kSlotBytes = (kPad < 64 ? 64 : kPad) * 128;
+  // P (then dS) as bf16, query rows by keys: a 64-key block of kPad rows
+  // of 128 B (128-byte swizzle) per 64 keys, then the 16 tail keys as kPad
+  // rows of 32 B (32-byte swizzle); one such array for the high parts and
+  // one for the remainders
+  static constexpr int kBlockBytes = kPad * 128;
+  // dq reads its row tile's 64 rows of the staged dS whole; rows past kPad
+  // run on into the next block or past the array, so an array holds every
+  // row a tile reads of its last 64-key block and of its tail block
+  static constexpr int kRowsRead = (kPad + 63) / 64 * 64;
+  static constexpr int kTailEnd =
+      NF / 64 * kBlockBytes + (NS ? kRowsRead * 32 : 0);
+  static constexpr int kBlockEnd =
+      NF ? (NF / 64 - 1) * kBlockBytes + kRowsRead * 128 : 0;
+  static constexpr int kArrayBytes =
+      ((kTailEnd > kBlockEnd ? kTailEnd : kBlockEnd) + 1023) / 1024 * 1024;
+  static constexpr size_t kSmemBytes =
+      1024 + (size_t)kRing * kSlotBytes + 2 * (size_t)kArrayBytes +
+      kRing * sizeof(uint64_t);
+  // accumulator arrays of the main and tail keys (one dummy register when
+  // a part is absent)
+  static constexpr int kMain = NF ? NF / 2 : 1;
+  static constexpr int kTail = NS ? NS / 2 : 1;
+};
+
+size_t fused_smem_bytes(int s) {
+  switch (fused_pad(s)) {
+    case 16: return Fused<0, 16>::kSmemBytes;
+    case 64: return Fused<64, 0>::kSmemBytes;
+    case 80: return Fused<64, 16>::kSmemBytes;
+    case 128: return Fused<128, 0>::kSmemBytes;
+    default: return Fused<128, 16>::kSmemBytes;
+  }
+}
+
+// Byte offset in a staging array of the bf16 pair at query row `row`, keys
+// 8 j + 2 t and + 1 (j counts 8-key groups over the main keys, then the
+// tail's two), for a row with row % 8 == gr: the swizzle then is one XOR
+// of the row's base.
+template <int NF, int NS>
+__device__ __forceinline__ uint32_t stage_at(int j, int row, int gr, int t) {
+  using F = Fused<NF, NS>;
+  if (j < NF / 8)
+    return (j / 8) * F::kBlockBytes +
+           ((row * 128 + (gr << 4) + 4 * t) ^ ((j % 8) << 4));
+  return NF / 64 * F::kBlockBytes +
+         ((row * 32 + (((gr >> 2) & 1) << 4) + 4 * t) ^ ((j - NF / 8) << 4));
+}
+
+// dv (or dk / scale) of the 64 keys `key0` ... from the staged P (or dS):
+// sum over the kPad query rows of P^T g, with P^T read MN-major from the
+// staging arrays (high part and remainder) and g (or q) MN-major from its
+// slot.
+template <int NF, int NS>
+__device__ __forceinline__ void key_tile_product(float (&acc)[32],
+                                                 uint32_t hi, uint32_t lo,
+                                                 uint32_t rows) {
+  using namespace hopper;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < Fused<NF, NS>::kSteps; ++kk) {
+    wgmma_m64n64k16_ss_mn(acc, desc_mn_sw128(hi, kk), desc_mn_sw128(rows, kk));
+    wgmma_m64n64k16_ss_mn(acc, desc_mn_sw128(lo, kk), desc_mn_sw128(rows, kk));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// The 16 tail keys' dv^T (or dk^T / scale): 64 columns by 16 keys, g^T
+// (or q^T) read MN-major from its slot, the staged tail keys MN-major
+// under the 32-byte swizzle.
+template <int NF, int NS>
+__device__ __forceinline__ void tail_keys_product(float (&acc)[8],
+                                                  uint32_t rows, uint32_t hi,
+                                                  uint32_t lo) {
+  using namespace hopper;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < Fused<NF, NS>::kSteps; ++kk) {
+    wgmma_m64n16k16_ss_mn(acc, desc_mn_sw128(rows, kk), desc_mn_sw32(hi, kk));
+    wgmma_m64n16k16_ss_mn(acc, desc_mn_sw128(rows, kk), desc_mn_sw32(lo, kk));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// Writes a key tile's accumulator (keys key0 + 16 w + g (+ 8), columns
+// 8 j + 2 t (+ 1)) times `mul` to out (one head, row-major (S, 64)); keys
+// at or past valid_len get zeros, keys past S nothing.
+__device__ __forceinline__ void store_key_tile(__nv_bfloat16* out,
+                                               const float (&acc)[32],
+                                               int key0, int s, int valid_len,
+                                               float mul, int warp, int gr,
+                                               int t) {
+  using hopper::pack_bf16;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + warp * 16 + gr + 8 * h;
+    if (key >= s) continue;
+    const bool keep = key < valid_len;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + (size_t)key * kD + 8 * j + 2 * t) =
+          keep ? pack_bf16(acc[4 * j + 2 * h] * mul,
+                           acc[4 * j + 2 * h + 1] * mul)
+               : 0u;
+  }
+}
+
+// Writes the tail keys' transposed accumulator (columns 16 w + g (+ 8),
+// keys key0 + 8 j + 2 t (+ 1)) times `mul` to out, as store_key_tile.
+__device__ __forceinline__ void store_tail_keys(__nv_bfloat16* out,
+                                                const float (&acc)[8],
+                                                int key0, int s, int valid_len,
+                                                float mul, int warp, int gr,
+                                                int t) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = warp * 16 + gr + 8 * ((i / 2) % 2);
+    const int key = key0 + 8 * (i / 4) + 2 * t + i % 2;
+    if (key < s)
+      out[(size_t)key * kD + col] =
+          __float2bfloat16_rn(key < valid_len ? acc[i] * mul : 0.f);
+  }
+}
+
+// x, which the compiler may not assume it knows: each phase of the fused
+// kernel takes its lane and staging address through this, so that it
+// computes its addresses anew and does not keep an earlier phase's equal
+// ones (the dS staging's are the P staging's, dk's stores dv's) in
+// registers the products need.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// dP of one key chunk (64 keys at key0, or the 16 tail keys): g rows at
+// `ga` against V rows at `va`, issued and waited for.
+template <int N>
+__device__ __forceinline__ void dp_chunk(float (&dp)[N / 2], uint32_t ga,
+                                         uint32_t va) {
+  using namespace hopper;
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kD / 16; ++ks)
+    wgmma_ss<N>(dp, desc_k_sw128(ga, ks), desc_k_sw128(va, ks), ks);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dp);
+}
+
+// One key chunk of N keys (8-key groups j0 ...) of a warp's rows wrow ...:
+// P read back from the staging arrays at `stage` (the words this thread
+// wrote), dS = P (dP - D) written over it.
+template <int NF, int NS, int N>
+__device__ __forceinline__ void ds_in_place(const float (&dp)[N / 2], int j0,
+                                            uint32_t stage, int wrow,
+                                            const float (&dd)[2], int gr,
+                                            int t) {
+  using namespace hopper;
+#pragma unroll
+  for (int jj = 0; jj < N / 8; ++jj) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t at =
+          stage + stage_at<NF, NS>(j0 + jj, wrow + gr + 8 * h, gr, t);
+      float p0, p1;
+      unsplit_bf16(ld_shared_u32(at),
+                   ld_shared_u32(at + Fused<NF, NS>::kArrayBytes), p0, p1);
+      uint32_t whi, wlo;
+      split_bf16(p0 * (dp[4 * jj + 2 * h] - dd[h]),
+                 p1 * (dp[4 * jj + 2 * h + 1] - dd[h]), whi, wlo);
+      st_shared_u32(at, whi);
+      st_shared_u32(at + Fused<NF, NS>::kArrayBytes, wlo);
+    }
+  }
+}
+
+// dq / scale of a 64-row tile from the staged dS: dS (K-major from the
+// staging arrays at `hi` and `lo`, rows row0 ...) times K (MN-major from
+// its slot at `keys`).
+template <int NF, int NS>
+__device__ __forceinline__ void dq_product(float (&acc)[32], uint32_t hi,
+                                           uint32_t lo, int row0,
+                                           uint32_t keys) {
+  using namespace hopper;
+  using F = Fused<NF, NS>;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < F::kSteps; ++kk) {
+    const uint64_t b = desc_mn_sw128(keys, kk);
+    if (kk < NF / 16) {
+      const uint32_t at = kk / 4 * F::kBlockBytes + row0 * 128;
+      wgmma_m64n64k16_ss_kmn(acc, desc_k_sw128(hi + at, kk % 4), b);
+      wgmma_m64n64k16_ss_kmn(acc, desc_k_sw128(lo + at, kk % 4), b);
+    } else {
+      const uint32_t at = NF / 64 * F::kBlockBytes + row0 * 32;
+      wgmma_m64n64k16_ss_kmn(acc, desc_k_sw32(hi + at), b);
+      wgmma_m64n64k16_ss_kmn(acc, desc_k_sw32(lo + at), b);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// One block per SM walks the heads head = blockIdx.x, + gridDim.x, ...
+// Three warpgroups; shared memory (from a 1024-byte boundary):
+//   ring      kRing slots of max(kPad, 64) x 128 B: the operands g, K, q, V
+//             of consecutive heads, in that order, slot n % kRing for the
+//             n-th operand the block loads (one TMA box of kPad rows each;
+//             rows past S read as zeros)
+//   staging   two arrays (bf16 high parts, remainders) of P, then of dS,
+//             laid out by stage_at
+//   barriers  one mbarrier per slot (TMA bytes arrived)
+// Per head, a warpgroup with a row tile computes S and the rows' softmax
+// in registers, stages P, and sums D = rowsum(P dP) over dP's key chunks;
+// the key jobs take dv = P^T g; then each row tile recomputes dP chunk by
+// chunk and turns its staged P into dS in place (each thread rewrites the
+// words it wrote); dq = dS K and dk = dS^T q both read the staged dS. No
+// product takes an operand from registers and dS never waits in them, so
+// the products stay pipelined (ptxas serialises every wgmma of a kernel
+// that runs out of registers for one). Block barriers: (0) after S and the
+// softmax, once every warpgroup has finished the last head (its dq and dk
+// read the staging arrays and its K, q and V slots, which the next head's
+// g, K and q now take); (1) P staged; (2) dv done, P read; (3) dS staged
+// (g's slot free for the next head's V). A warpgroup runs from its dq and
+// dk into the next head's S without waiting.
+template <int NF, int NS>
+__global__ void __launch_bounds__(kFusedThreads, 1)
+    vit_attention_bwd_fused_wgmma(const __grid_constant__ BwdMaps maps,
+                                  __nv_bfloat16* __restrict__ dq,
+                                  __nv_bfloat16* __restrict__ dk,
+                                  __nv_bfloat16* __restrict__ dv, int bh,
+                                  int s, int valid_len, float scale,
+                                  float scale_log2) {
+  using namespace hopper;
+  using F = Fused<NF, NS>;
+  constexpr int kAll = (NF + NS) / 2;     // accumulator elements of a row
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align_1024(smem_raw);
+  const uint32_t st_u32 = smem_u32(ring + kRing * F::kSlotBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kRing * F::kSlotBytes +
+                                               2 * F::kArrayBytes);
+
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  // Roles: warpgroup w computes query-row tile w (if w < n_rows) and one
+  // key job: 64-key tile `job` if job < NF / 64, the 16 tail keys if job ==
+  // NF / 64 (and NS), else none. The jobs rotate with n_rows so that a
+  // warpgroup without a row tile takes a key tile first.
+  const int n_rows = (s + 63) / 64;
+  const int job = (wg + 3 - n_rows % 3) % 3;
+  const bool has_rows = wg < n_rows;
+  const bool key_tile = job < NF / 64;
+  const bool tail_keys = NS > 0 && job == NF / 64;
+  const int row0 = wg * 64;
+  const int wrow = row0 + warp * 16;       // this warp's first row
+  // a warp whose rows all lie past kPad (in a last tile) reads other data
+  // as its q and g rows; its results are neither staged nor written
+  const bool real_rows = wrow < F::kPad;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRing; ++i) mbar_init(full + i, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  auto slot = [&](int n) { return ring + (n % kRing) * F::kSlotBytes; };
+  // the n-th operand of the block (g, K, q, V of head n / 4) into its slot
+  auto issue = [&](int n, int head) {
+    const int kind = n % 4;
+    const CUtensorMap* map = kind == 0   ? &maps.g
+                             : kind == 1 ? &maps.k
+                             : kind == 2 ? &maps.q
+                                         : &maps.v;
+    mbar_expect_tx(full + n % kRing, F::kBoxBytes);
+    tma_load(slot(n), map, full + n % kRing, 0, 0, head);
+  };
+  const bool loader = threadIdx.x == kTmaThread;
+  if (loader && blockIdx.x < bh)
+    for (int n = 0; n < 4; ++n) issue(n, blockIdx.x);
+
+  int it = 0;
+  for (int head = blockIdx.x; head < bh; head += gridDim.x, ++it) {
+    const int n0 = 4 * it;
+    const bool more = head + gridDim.x < bh;
+    for (int n = n0; n < n0 + 4; ++n)
+      mbar_wait(full + n % kRing, (n / kRing) & 1);
+    const uint32_t g_s = smem_u32(slot(n0));
+    const uint32_t k_s = smem_u32(slot(n0 + 1));
+    const uint32_t q_s = smem_u32(slot(n0 + 2));
+    const uint32_t v_s = smem_u32(slot(n0 + 3));
+    const size_t hb = (size_t)head * s * kD;
+    int lane = opaque(threadIdx.x % 32);
+    int gr = lane / 4;
+    int t = lane % 4;
+
+    // ---- row tile: S, and the rows' softmax, whole, in registers
+    float sm[F::kMain], st[F::kTail];     // S, then P
+    if (has_rows) {
+      const uint32_t qa = q_s + row0 * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kD / 16; ++ks) {
+        if constexpr (NF > 0)
+          wgmma_ss<NF>(sm, desc_k_sw128(qa, ks), desc_k_sw128(k_s, ks), ks);
+        if constexpr (NS > 0)
+          wgmma_ss<16>(st, desc_k_sw128(qa, ks),
+                       desc_k_sw128(k_s + NF * 128, ks), ks);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sm);
+      fence_regs(st);
+      if (real_rows) {
+        // each row's kPad keys lie in the 4 lanes of a quad; keys at or
+        // past valid_len (and the padding past S) are -inf. Rows past S
+        // (zero q and g) get a finite P and dS = 0, and meet zero g and q
+        // in dv and dk.
+        if (valid_len < NF) {
+#pragma unroll
+          for (int i = 0; i < NF / 2; ++i)
+            if (8 * (i / 4) + 2 * t + i % 2 >= valid_len) sm[i] = -INFINITY;
+        }
+        if (NS > 0 && valid_len < F::kPad) {
+#pragma unroll
+          for (int i = 0; i < NS / 2; ++i)
+            if (NF + 8 * (i / 4) + 2 * t + i % 2 >= valid_len)
+              st[i] = -INFINITY;
+        }
+        float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < kAll; ++i) {
+          const float x = i < NF / 2 ? sm[i] : st[i - NF / 2];
+          m[(i / 2) % 2] = fmaxf(m[(i / 2) % 2], x);
+        }
+        float l[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+          m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+          m[h] *= scale_log2;
+        }
+#pragma unroll
+        for (int i = 0; i < kAll; ++i) {
+          float& x = i < NF / 2 ? sm[i] : st[i - NF / 2];
+          x = exp2_fast(fmaf(x, scale_log2, -m[(i / 2) % 2]));
+          l[(i / 2) % 2] += x;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+          l[h] = rcp_fast(l[h]);   // l >= 1: the row's largest term is 1
+        }
+#pragma unroll
+        for (int i = 0; i < kAll; ++i) {
+          float& x = i < NF / 2 ? sm[i] : st[i - NF / 2];
+          x *= l[(i / 2) % 2];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kAll; ++i)
+          (i < NF / 2 ? sm[i] : st[i - NF / 2]) = 0.f;
+      }
+    }
+    __syncthreads();   // (0) every warpgroup is done with the last head
+    if (loader && more)       // into the last head's K, q and V slots
+      for (int n = 4; n < 7; ++n) issue(n0 + n, head + gridDim.x);
+    __syncwarp();
+
+    // ---- P into the staging arrays; D = rowsum(P dP) over dP's chunks
+    float dd[2] = {0.f, 0.f};
+    if (has_rows) {
+      if (real_rows) {
+        const uint32_t stage = opaque(st_u32);
+#pragma unroll
+        for (int j = 0; j < kAll / 4; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h;
+            uint32_t whi, wlo;
+            if (i < NF / 2)
+              split_bf16(sm[i], sm[i + 1], whi, wlo);
+            else
+              split_bf16(st[i - NF / 2], st[i - NF / 2 + 1], whi, wlo);
+            const uint32_t at = stage_at<NF, NS>(j, wrow + gr + 8 * h, gr, t);
+            st_shared_u32(stage + at, whi);
+            st_shared_u32(stage + F::kArrayBytes + at, wlo);
+          }
+        }
+        fence_proxy_async();
+      }
+      const uint32_t ga = g_s + row0 * 128;
+#pragma unroll
+      for (int c = 0; c < NF / 64; ++c) {
+        float dp[32];
+        dp_chunk<64>(dp, ga, v_s + c * 64 * 128);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          dd[(i / 2) % 2] = fmaf(sm[32 * c + i], dp[i], dd[(i / 2) % 2]);
+      }
+      if constexpr (NS > 0) {
+        float dp[8];
+        dp_chunk<16>(dp, ga, v_s + NF * 128);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          dd[(i / 2) % 2] = fmaf(st[i], dp[i], dd[(i / 2) % 2]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        dd[h] += __shfl_xor_sync(0xffffffffu, dd[h], 1);
+        dd[h] += __shfl_xor_sync(0xffffffffu, dd[h], 2);
+      }
+    }
+    __syncthreads();   // (1) P staged
+
+    // ---- dv of this warpgroup's keys: P^T g
+    lane = opaque(threadIdx.x % 32);
+    gr = lane / 4;
+    t = lane % 4;
+    {
+      const uint32_t hi_at = opaque(st_u32) + job * F::kBlockBytes;
+      const uint32_t lo_at = hi_at + F::kArrayBytes;
+      if (key_tile) {
+        float acc[32];
+        key_tile_product<NF, NS>(acc, hi_at, lo_at, g_s);
+        store_key_tile(dv + hb, acc, 64 * job, s, valid_len, 1.f, warp, gr,
+                       t);
+      } else if (tail_keys) {
+        float acc[8];
+        tail_keys_product<NF, NS>(acc, g_s, hi_at, lo_at);
+        store_tail_keys(dv + hb, acc, NF, s, valid_len, 1.f, warp, gr, t);
+      }
+    }
+    __syncthreads();   // (2) P read for the last time
+
+    // ---- dS = P (dP - D) in place of P: dP chunk by chunk again, P read
+    // back from the staging arrays (the words this thread wrote)
+    lane = opaque(threadIdx.x % 32);
+    gr = lane / 4;
+    t = lane % 4;
+    if (has_rows) {
+      const uint32_t stage = opaque(st_u32);
+      const uint32_t ga = g_s + row0 * 128;
+#pragma unroll
+      for (int c = 0; c < NF / 64; ++c) {
+        float dp[32];
+        dp_chunk<64>(dp, ga, v_s + c * 64 * 128);
+        if (real_rows) ds_in_place<NF, NS, 64>(dp, 8 * c, stage, wrow, dd, gr, t);
+      }
+      if constexpr (NS > 0) {
+        float dp[8];
+        dp_chunk<16>(dp, ga, v_s + NF * 128);
+        if (real_rows) ds_in_place<NF, NS, 16>(dp, NF / 8, stage, wrow, dd, gr, t);
+      }
+      fence_proxy_async();
+    }
+    __syncthreads();   // (3) dS staged; g and V read for the last time
+    if (loader && more)       // the next head's V into this head's g slot
+      issue(n0 + 7, head + gridDim.x);
+    __syncwarp();
+
+    // ---- dq of the row tile, dS K; dk of the key job, dS^T q
+    lane = opaque(threadIdx.x % 32);
+    gr = lane / 4;
+    t = lane % 4;
+    const uint32_t stage = opaque(st_u32);
+    if (has_rows) {
+      float acc[32];
+      dq_product<NF, NS>(acc, stage, stage + F::kArrayBytes, row0, k_s);
+      __nv_bfloat16* dq_h = dq + hb;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = wrow + gr + 8 * h;
+        if (row >= s) continue;
+#pragma unroll
+        for (int j = 0; j < kD / 8; ++j)
+          *reinterpret_cast<uint32_t*>(dq_h + row * kD + 8 * j + 2 * t) =
+              pack_bf16(acc[4 * j + 2 * h] * scale,
+                        acc[4 * j + 2 * h + 1] * scale);
+      }
+    }
+    const uint32_t hi_at = stage + job * F::kBlockBytes;
+    const uint32_t lo_at = hi_at + F::kArrayBytes;
+    if (key_tile) {
+      float acc[32];
+      key_tile_product<NF, NS>(acc, hi_at, lo_at, q_s);
+      store_key_tile(dk + hb, acc, 64 * job, s, valid_len, scale, warp, gr,
+                     t);
+    } else if (tail_keys) {
+      float acc[8];
+      tail_keys_product<NF, NS>(acc, q_s, hi_at, lo_at);
+      store_tail_keys(dk + hb, acc, NF, s, valid_len, scale, warp, gr, t);
+    }
+  }
+}
+
+template <int NF, int NS>
+cudaError_t launch_fused(const BwdMaps& maps, void* dq, void* dk, void* dv,
+                         int bh, int s, int valid_len, float scale, int grid,
+                         cudaStream_t st) {
+  static size_t allowed = 0;
+  const size_t smem = Fused<NF, NS>::kSmemBytes;
+  const cudaError_t err =
+      hopper::allow_smem(vit_attention_bwd_fused_wgmma<NF, NS>, smem, &allowed);
+  if (err != cudaSuccess) return err;
+  vit_attention_bwd_fused_wgmma<NF, NS><<<grid, kFusedThreads, smem, st>>>(
+      maps, static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), bh, s, valid_len, scale,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
 bool use_tensor_cores(int d, int elem_bytes) {
   return elem_bytes == 2 && d == kD;
 }
@@ -1126,6 +1705,61 @@ int vit_attention_backward_dkdv_launch(const void* q, const void* k,
         valid_len, scale);
   }
   return (int)cudaGetLastError();
+}
+
+// The longest head the fused kernel takes (S_max).
+int vit_attention_backward_fused_max_s() { return kFusedMaxS; }
+
+// Bytes of dynamic shared memory a block of the fused kernel needs at S.
+size_t vit_attention_backward_fused_smem_bytes(int s) {
+  return fused_smem_bytes(s);
+}
+
+// The fused kernel: q, k, v, g bf16, contiguous (bh, s, 64), 16-byte
+// aligned; writes dq, dk, dv (the same layout) in one pass over each head,
+// with one block per SM of the current device (at most bh). Takes
+// 1 <= s <= S_max. Launches on `stream` and returns cudaGetLastError() (0 on
+// success).
+int vit_attention_backward_fused_launch(const void* q, const void* k,
+                                        const void* v, const void* g,
+                                        void* dq, void* dk, void* dv, int bh,
+                                        int s, int valid_len, float scale,
+                                        void* stream) {
+  if (s < 1 || s > kFusedMaxS || bh < 1) return (int)cudaErrorInvalidValue;
+  static int sms = 0;                  // one card per process
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int pad = fused_pad(s);
+  BwdMaps maps;
+  if (!(hopper::encode_bf16_map(&maps.q, q, bh, s, kD, pad, 64) &&
+        hopper::encode_bf16_map(&maps.k, k, bh, s, kD, pad, 64) &&
+        hopper::encode_bf16_map(&maps.v, v, bh, s, kD, pad, 64) &&
+        hopper::encode_bf16_map(&maps.g, g, bh, s, kD, pad, 64)))
+    return (int)cudaErrorNotSupported;
+  const int grid = bh < sms ? bh : sms;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (pad) {
+    case 16:
+      return (int)launch_fused<0, 16>(maps, dq, dk, dv, bh, s, valid_len,
+                                      scale, grid, st);
+    case 64:
+      return (int)launch_fused<64, 0>(maps, dq, dk, dv, bh, s, valid_len,
+                                      scale, grid, st);
+    case 80:
+      return (int)launch_fused<64, 16>(maps, dq, dk, dv, bh, s, valid_len,
+                                       scale, grid, st);
+    case 128:
+      return (int)launch_fused<128, 0>(maps, dq, dk, dv, bh, s, valid_len,
+                                       scale, grid, st);
+    default:
+      return (int)launch_fused<128, 16>(maps, dq, dk, dv, bh, s, valid_len,
+                                        scale, grid, st);
+  }
 }
 
 }  // extern "C"

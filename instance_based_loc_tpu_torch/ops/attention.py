@@ -13,11 +13,14 @@ the kernel.
 Training differentiates through it: when an input requires a gradient,
 `vit_attention` runs as `VitAttentionFunction`, whose forward is the same
 call (the kernel on the card) and whose backward is `_attention_backward`:
-on the card the two passes of `csrc/vit_attention_backward.cu` (dq with
-each row's log-sum-exp and D, then dk and dv), on the CPU
-`vit_attention_backward`, the plain version, which recomputes
-P = softmax(q kᵀ / √D) in fp32 from the saved q, k and v.
-`backward_launches` counts the backward kernel's launches, one per pass.
+on the card a kernel of `csrc/vit_attention_backward.cu` that
+`backward_kernel` picks (the fused one-pass kernel for bf16 heads of at
+most `FUSED_MAX_S` rows, else two passes: dq with each row's log-sum-exp
+and D, then dk and dv), on the CPU `vit_attention_backward`, the plain
+version, which recomputes P = softmax(q kᵀ / √D) in fp32 from the saved q,
+k and v. `backward_launches` counts the backward kernels' launches (one
+per fused call, one per pass), `fused_backward_launches` the fused
+kernel's alone.
 The JAX package has no backward kernel: its DATOR towers compute attention
 as einsums and XLA differentiates them, so this backward is the
 counterpart of that autodiff, not of a TPU kernel.
@@ -36,9 +39,14 @@ SOURCE = "vit_attention.cu"
 BACKWARD_SOURCE = "vit_attention_backward.cu"
 # an H100's per-block dynamic shared memory limit (227 KB)
 MAX_SHARED_BYTES = 232_448
+# the longest head the fused backward kernel takes (S_max; the source's
+# kFusedMaxS): a 64-row tile's whole S row (144 keys) fits a warpgroup's
+# registers, and a head's operands with P's staging fit shared memory
+FUSED_MAX_S = 144
 
 launches = 0
 backward_launches = 0
+fused_backward_launches = 0
 
 _lib = None
 _backward_lib = None
@@ -73,6 +81,17 @@ def _backward_library():
         lib.vit_attention_backward_dkdv_launch.restype = ctypes.c_int
         lib.vit_attention_backward_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.vit_attention_backward_smem_bytes.restype = ctypes.c_size_t
+        # q, k, v, g, dq, dk, dv
+        lib.vit_attention_backward_fused_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.vit_attention_backward_fused_launch.restype = ctypes.c_int
+        lib.vit_attention_backward_fused_smem_bytes.argtypes = [ctypes.c_int]
+        lib.vit_attention_backward_fused_smem_bytes.restype = ctypes.c_size_t
+        lib.vit_attention_backward_fused_max_s.restype = ctypes.c_int
+        if lib.vit_attention_backward_fused_max_s() != FUSED_MAX_S:
+            raise RuntimeError("the fused backward kernel's S_max differs "
+                               "from FUSED_MAX_S")
         _backward_lib = lib
     return _backward_lib
 
@@ -87,6 +106,22 @@ def _backward_smem_bytes(d: int, s: int, valid_len: int,
                          elem_bytes: int) -> int:
     return _backward_library().vit_attention_backward_smem_bytes(
         d, s, valid_len, elem_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_backward_smem_bytes(s: int) -> int:
+    return _backward_library().vit_attention_backward_fused_smem_bytes(s)
+
+
+def backward_kernel(s: int, d: int, dtype: torch.dtype) -> str:
+    """Which backward kernel takes heads of `s` rows and head size `d` in
+    `dtype`: "fused" for bf16 with D = 64 and S <= FUSED_MAX_S (one pass
+    over each head, a persistent kernel), else "two_pass" (bf16 with D = 64
+    at longer S on the tensor cores, fp32 at any D on the CUDA cores).
+    `_backward_check` raises for what neither takes."""
+    if dtype == torch.bfloat16 and d == 64 and s <= FUSED_MAX_S:
+        return "fused"
+    return "two_pass"
 
 
 def vit_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -242,7 +277,10 @@ def _backward_check(q, k, v, grad_out, valid_len) -> int:
         raise ValueError("grad_out must lie on q's device")
     valid = _kernel_check(q, k, v, valid_len, "attention backward")
     b, h, s, d = q.shape
-    smem = _backward_smem_bytes(d, s, valid, q.element_size())
+    if backward_kernel(s, d, q.dtype) == "fused":
+        smem = _fused_backward_smem_bytes(s)
+    else:
+        smem = _backward_smem_bytes(d, s, valid, q.element_size())
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"a head of the backward needs {smem} B of shared "
                          f"memory, above the {MAX_SHARED_BYTES} B a block "
@@ -250,26 +288,58 @@ def _backward_check(q, k, v, grad_out, valid_len) -> int:
     return valid
 
 
-def _attention_backward(q, k, v, grad_out, valid_len):
+def _attention_backward(q, k, v, grad_out, valid_len, kernel=None):
     """`VitAttentionFunction`'s backward: the plain version for CPU tensors,
-    else the kernel's two passes, (dq, dk, dv) in the input type."""
-    global backward_launches
+    else the kernel `backward_kernel` picks: for bf16 heads of D = 64 and
+    S <= FUSED_MAX_S (the DATOR towers' 129, CLIP-B/32's 50) the fused
+    kernel, one launch; for longer bf16 heads (DINOv2's 257) and fp32 the
+    two passes, two launches. (dq, dk, dv) in the input type.
+
+    `kernel` ("fused" or "two_pass") overrides the rule, so that timings
+    and tests can hold the two designs against each other at one shape;
+    "fused" raises for a head the fused kernel does not take."""
+    global backward_launches, fused_backward_launches
     if q.device.type == "cpu" and grad_out.device.type == "cpu":
         return vit_attention_backward(q, k, v, grad_out, valid_len)
+    if kernel not in (None, "fused", "two_pass"):
+        raise ValueError(f"unknown backward kernel {kernel!r}")
     valid = _backward_check(q, k, v, grad_out, valid_len)
     b, h, s, d = q.shape
+    rule = backward_kernel(s, d, q.dtype)
+    if kernel == "fused" and rule != "fused":
+        raise ValueError(f"the fused backward kernel takes bf16 heads of D "
+                         f"= 64 and S <= {FUSED_MAX_S}; got {q.dtype}, D = "
+                         f"{d}, S = {s}")
+    if kernel == "two_pass" and rule == "fused":
+        smem = _backward_smem_bytes(d, s, valid, q.element_size())
+        if smem > MAX_SHARED_BYTES:
+            raise ValueError(f"the two passes need {smem} B of shared "
+                             f"memory at S = {s}")
+    kernel = kernel or rule
     # autograd hands the towers' gradient over as a strided view
     g = grad_out.contiguous()
     if g.data_ptr() % 16:        # TMA reads 16-byte aligned rows
         g = g.clone()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = torch.empty((2, b * h * s), dtype=torch.float32, device=q.device)
-    lse, delta = stats[0], stats[1]
-    is_bf16 = int(q.dtype == torch.bfloat16)
-    args = (b * h, s, d, valid, 1.0 / d ** 0.5, is_bf16)
+    scale = 1.0 / d ** 0.5
     lib = _backward_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        if kernel == "fused":
+            err = lib.vit_attention_backward_fused_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, s, valid,
+                scale, stream)
+            if err != 0:
+                raise RuntimeError(f"vit_attention backward (fused) launch "
+                                   f"failed with CUDA error {err}")
+            backward_launches += 1
+            fused_backward_launches += 1
+            return dq, dk, dv
+        stats = torch.empty((2, b * h * s), dtype=torch.float32,
+                            device=q.device)
+        lse, delta = stats[0], stats[1]
+        args = (b * h, s, d, valid, scale, int(q.dtype == torch.bfloat16))
         err = lib.vit_attention_backward_dq_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             dq.data_ptr(), lse.data_ptr(), delta.data_ptr(), *args, stream)

@@ -1,14 +1,17 @@
-"""Device times of the ViT attention's backward kernel (its two passes), the
-forward kernel and SDPA's backward (`scaled_dot_product_attention` under
-autograd, a yardstick the port never calls), on the card, at the training
-batch (128 x 12 heads, D = 64, bf16) over head lengths S:
+"""Device times of the ViT attention's backward kernels, the forward kernel
+and SDPA's backward (`scaled_dot_product_attention` under autograd, a
+yardstick the port never calls), on the card, at the training batch
+(128 x 12 heads, D = 64, bf16) over head lengths S. The two passes run at
+every S (forced where the fused kernel would take it), the fused kernel
+at S <= S_max (attention.FUSED_MAX_S, 144):
 
 * 128: whole 64-row tiles only;
 * 129: the DATOR towers' length, one query row and one key past the last
-  tile (the producer warpgroup's fp32 path) and a 16-wide last chunk;
-* 136: eight rows and keys on that path;
-* 144: a remainder of 16, a tile of its own;
-* 192 / 193 and 257 (DINOv2-base's length).
+  tile (in the two passes the producer warpgroup's fp32 path; in the fused
+  kernel a third row tile and 16 tail keys);
+* 136: eight rows and keys past the tiles;
+* 144: a remainder of 16, S_max;
+* 192 / 193 and 257 (DINOv2-base's length): the two passes only.
 
 Each time is the mean device time of one kernel (or, for SDPA, of every
 kernel its backward launches) from torch.profiler (`chip_smoke.device_ms`).
@@ -40,19 +43,24 @@ def main():
                                   device="cuda").to(torch.bfloat16)
                       for _ in range(4))
 
-        def backward():
-            attention._attention_backward(q, k, v, g, None)
+        def two_pass():
+            attention._attention_backward(q, k, v, g, None, kernel="two_pass")
+
+        def fused():
+            attention._attention_backward(q, k, v, g, None, kernel="fused")
 
         sq, sk, sv = (x.clone().requires_grad_(True) for x in (q, k, v))
         out = F.scaled_dot_product_attention(sq, sk, sv)
-        result[f"S={s}"] = {
+        row = result[f"S={s}"] = {
             "forward_ms": device_ms(lambda: attention.vit_attention(q, k, v),
                                     "vit_attention_wgmma"),
-            "dq_ms": device_ms(backward, "vit_attention_bwd_dq"),
-            "dkdv_ms": device_ms(backward, "vit_attention_bwd_dkdv"),
+            "dq_ms": device_ms(two_pass, "vit_attention_bwd_dq"),
+            "dkdv_ms": device_ms(two_pass, "vit_attention_bwd_dkdv"),
             "sdpa_backward_ms": device_ms(lambda: torch.autograd.grad(
                 out, (sq, sk, sv), g, retain_graph=True)),
         }
+        if s <= attention.FUSED_MAX_S:
+            row["fused_ms"] = device_ms(fused, "vit_attention_bwd_fused")
     print(json.dumps(result), flush=True)
 
 

@@ -31,18 +31,22 @@ points) and at every other tap count the kernel is built for (T = 4K,
 K = 1..8); other tap counts raise before a launch.
 
 The ViT attention's gradient (`VitAttentionFunction`: the kernel forward,
-the backward kernel's two passes): dq, dk, dv against autograd of the
-plain version, bf16 |diff| <= 2e-3 + 2^-7 |ref| (the kernel rounds P and
-dS to bf16 once for their products, 2^-9 of each term, and both sides
-round fp32 gradients to bf16), fp32 1e-5; at the training shape, the
-embedders' S = 257 and S = 50, masked tails (keys past valid_len get
-exactly zero dk and dv), short last chunks, a head shorter than a tile
-(S = 5) and a strided upstream gradient, each with one launch of each
-backward pass (S = 129 and 257 put one row and key on the producer
-warpgroup's fp32 path); one DATOR training step on the card (fp32,
-the kernels' fp32 paths, hidden 64) launches the forward kernel and the
-backward's two passes once per tower block and gives the CPU step's loss
-within 1e-4 relative.
+then the backward kernel `attention.backward_kernel` picks: the fused
+one-pass kernel for bf16 heads of S <= S_max = 144, else the two passes):
+dq, dk, dv against autograd of the plain version, bf16 |diff| <= 2e-3 +
+2^-7 |ref| (the kernels keep P and dS to ~16 bits as a bf16 high part and
+remainder, and both sides round fp32 gradients to bf16), fp32 1e-5; at
+the training shape, the embedders' S = 257 and S = 50, masked tails (keys
+past valid_len get exactly zero dk and dv), short last chunks, a head
+shorter than a tile (S = 5), a strided upstream gradient, the fused
+kernel's edges (S = 128, 129, 144 = S_max, and 145, which the two passes
+take) and head counts that leave its persistent blocks a partial last
+wave (1, 21 and 1536 heads), each with one launch of the fused kernel or
+one of each pass; two runs of each give bitwise-equal gradients (no
+atomics); one DATOR training step on the card (fp32, the kernels' fp32
+paths, hidden 64) launches the forward kernel and the backward's two
+passes once per tower block and gives the CPU step's loss within 1e-4
+relative.
 
 The query program's CUDA-graph replay (`ops/query_graph.py`): on a small
 scene, every `localise_many` result of the replay equals the eager run's
@@ -121,6 +125,16 @@ def test_cuda_kernel_matches_plain_version(shape, dtype, valid_len, tol):
     ((2, 3, 5, 64), torch.bfloat16, None, False, (2e-3, 2 ** -7)),
     ((2, 3, 70, 32), torch.float32, 33, False, FP32_TOL),
     ((2, 3, 70, 32), torch.float32, None, True, FP32_TOL),
+    # the fused kernel's edges: whole tiles (128), one row and key past
+    # them (129), S_max (144, with a masked tail) and S_max + 1 (the two
+    # passes); 1, 21 and 1536 heads leave a partial last wave of its
+    # one-block-per-SM grid
+    ((4, 12, 128, 64), torch.bfloat16, None, False, (2e-3, 2 ** -7)),
+    ((4, 12, 129, 64), torch.bfloat16, None, False, (2e-3, 2 ** -7)),
+    ((4, 12, 144, 64), torch.bfloat16, 130, False, (2e-3, 2 ** -7)),
+    ((4, 12, 145, 64), torch.bfloat16, None, False, (2e-3, 2 ** -7)),
+    ((1, 1, 129, 64), torch.bfloat16, None, False, (2e-3, 2 ** -7)),
+    ((3, 7, 129, 64), torch.bfloat16, None, False, (2e-3, 2 ** -7)),
 ])
 def test_attention_gradient_on_the_card(shape, dtype, valid_len, strided,
                                         tol):
@@ -139,12 +153,16 @@ def test_attention_gradient_on_the_card(shape, dtype, valid_len, strided,
     ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
     before = attention.launches
     before_bwd = attention.backward_launches
+    before_fused = attention.fused_backward_launches
     out = attention.vit_attention(*ins, valid_len=valid_len)
     grads = torch.autograd.grad(out, ins, g)
     torch.cuda.synchronize()
     assert attention.launches == before + 1
-    # one launch of each pass: the gradient came from the kernel
-    assert attention.backward_launches == before_bwd + 2
+    # one launch of the fused kernel, or one of each pass: the gradient
+    # came from the kernel the rule picks
+    fused = attention.backward_kernel(shape[2], shape[3], dtype) == "fused"
+    assert attention.backward_launches == before_bwd + (1 if fused else 2)
+    assert attention.fused_backward_launches == before_fused + int(fused)
     refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
     ref = attention.vit_attention_reference(*refs, valid_len=valid_len)
     for a, r in zip(grads, torch.autograd.grad(ref, refs, g)):
@@ -154,6 +172,23 @@ def test_attention_gradient_on_the_card(shape, dtype, valid_len, strided,
     if valid_len is not None:       # keys past valid_len: no gradient
         assert not grads[1][:, :, valid_len:].any()
         assert not grads[2][:, :, valid_len:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(128, 12, 129, 64), (16, 12, 50, 64),
+                                   (16, 12, 257, 64)])
+def test_attention_gradient_is_deterministic_on_the_card(shape):
+    """Two runs of the backward kernel give bitwise-equal dq, dk and dv:
+    each head's sums run in one block in a fixed order (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    first = attention._attention_backward(q, k, v, g, None)
+    again = attention._attention_backward(q, k, v, g, None)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -187,13 +222,17 @@ def test_dator_train_step_on_the_card():
         *(x.cuda() for x in draws.augment)))
     before = attention.launches
     before_bwd = attention.backward_launches
+    before_fused = attention.fused_backward_launches
     m_card = train.train_step(card, rgb.cuda(), depth.cuda(), labels.cuda(),
                               card_draws)
     torch.cuda.synchronize()
     assert attention.launches == before + cfg.backbone.num_blocks
-    # one backward call (its two passes) per tower block
+    # one backward call per tower block: fp32 heads of D = 16 take the two
+    # passes (the fused kernel takes bf16 with D = 64), two launches each
+    assert attention.backward_kernel(9, 16, torch.float32) == "two_pass"
     assert attention.backward_launches == (before_bwd
                                            + 2 * cfg.backbone.num_blocks)
+    assert attention.fused_backward_launches == before_fused
     m_cpu = train.train_step(cpu, rgb, depth, labels, draws)
     for key in m_cpu:
         torch.testing.assert_close(m_card[key].cpu(), m_cpu[key], rtol=1e-4,

@@ -287,6 +287,36 @@ def test_backward_check_rejects_what_the_kernel_does_not_take(case, match):
         attention._backward_check(q, k, v, g, valid)
 
 
+@pytest.mark.parametrize("s,d,dtype,kernel", [
+    (50, 64, torch.bfloat16, "fused"),       # CLIP-B/32's heads
+    (129, 64, torch.bfloat16, "fused"),      # the DATOR towers'
+    (attention.FUSED_MAX_S, 64, torch.bfloat16, "fused"),
+    (attention.FUSED_MAX_S + 1, 64, torch.bfloat16, "two_pass"),
+    (257, 64, torch.bfloat16, "two_pass"),   # DINOv2-base's
+    (129, 64, torch.float32, "two_pass"),    # fp32: the CUDA-core passes
+    (129, 32, torch.float32, "two_pass"),
+])
+def test_backward_kernel_rule(s, d, dtype, kernel):
+    """The wrapper's choice between the fused kernel and the two passes is
+    a function of (S, D, dtype) alone."""
+    assert attention.backward_kernel(s, d, dtype) == kernel
+
+
+def test_backward_wrapper_checks_a_forced_kernel():
+    """Forcing a kernel skips none of the checks: an unknown name raises,
+    and a forced kernel still raises for a device it does not run on (CPU
+    tensors take the plain version first, so these lie on the meta
+    device)."""
+    q = torch.zeros((1, 2, 16, 64), dtype=torch.bfloat16, device="meta")
+    before = attention.backward_launches
+    with pytest.raises(ValueError, match="unknown backward kernel"):
+        attention._attention_backward(q, q, q, q, None, kernel="other")
+    for kernel in ("fused", "two_pass"):
+        with pytest.raises(ValueError, match="no attention backward kernel"):
+            attention._attention_backward(q, q, q, q, None, kernel=kernel)
+    assert attention.backward_launches == before
+
+
 def test_backward_wrapper_takes_plain_version_on_cpu(rng):
     shape = (1, 2, 20, 8)
     q, k, v, g = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
